@@ -1,0 +1,113 @@
+"""Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
+
+Every ``*.cu`` file in ``csrc/`` becomes its own shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds).  Libraries go to
+``build/kernels-<hash of the sources and flags>/`` under the repository root
+(listed in ``.gitignore``), so an unchanged source is not rebuilt.  A failed
+build raises with nvcc's stderr; nothing falls back.
+
+Building is explicit or happens at a kernel's first launch on a CUDA tensor,
+never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build")
+
+# -fmad=false: the NMS IoU must round every step as the plain version does
+# (the source also uses explicitly rounded intrinsics); no fast math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+BUILD_TIMEOUT_S = 300
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cu"))
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the port's CUDA kernels cannot be built")
+    return nvcc
+
+
+def build_dir() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_ROOT, f"kernels-{h.hexdigest()[:16]}")
+
+
+def _compile(nvcc: str, src: str, out: str) -> None:
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s on {src}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    with open(out + ".log", "w") as f:   # ptxas register / shared-memory report
+        f.write(proc.stderr)
+    os.replace(tmp, out)                 # atomic: a concurrent build never sees half a file
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source whose library is missing, all nvcc runs at once.
+    Returns {library name: seconds} for the libraries built in this call."""
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    todo = []
+    for src in sources():
+        name = os.path.splitext(os.path.basename(src))[0]
+        out = os.path.join(out_dir, f"lib{name}.so")
+        if not os.path.exists(out):
+            todo.append((name, src, out))
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+
+    def one(item):
+        name, src, out = item
+        t0 = time.perf_counter()
+        _compile(nvcc, src, out)
+        return name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        return dict(pool.map(one, todo))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu`` (built on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = os.path.join(build_dir(), f"lib{name}.so")
+            if not os.path.exists(path):
+                build_all()
+            lib = ctypes.CDLL(path)
+            _libs[name] = lib
+        return lib

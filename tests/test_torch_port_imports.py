@@ -1,0 +1,83 @@
+"""Import hygiene, device rules and the smoke script's refusal paths.
+
+The port must import no JAX module, nothing of the JAX package, and neither
+cv2 nor yaml on its main path; asked for CUDA where there is none it raises;
+``chip_smoke.py`` exits non-zero with no result line where CUDA is absent or
+where it stands alone without the package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import json, pkgutil, importlib, sys
+import rtmodt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rtmodt_tpu_torch.__path__, "rtmodt_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+from rtmodt_tpu_torch.config import load_config
+load_config()
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "flax"))
+             or k == "rtmodt_tpu" or k.startswith("rtmodt_tpu."))
+print(json.dumps({"modules": names, "bad": bad,
+                  "cv2": "cv2" in sys.modules, "yaml": "yaml" in sys.modules}))
+"""
+
+
+def _run(args, cwd, **env):
+    e = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    e.update(env)
+    return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True,
+                          timeout=240, env=e)
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    proc = _run(["-c", _PROBE], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert not out["cv2"] and not out["yaml"]
+    for mod in ("rtmodt_tpu_torch.runtime.pipeline", "rtmodt_tpu_torch.ops.nms_kernel",
+                "rtmodt_tpu_torch.events.zone_engine", "rtmodt_tpu_torch._build"):
+        assert mod in out["modules"]
+
+
+def test_cuda_entry_points_raise_without_cuda(monkeypatch):
+    from rtmodt_tpu_torch.device import resolve_device
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Pipeline(device="cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _no_result(proc) -> bool:
+    lines = proc.stdout.strip().splitlines()
+    return not any('"ok"' in line or '"kernels"' in line for line in lines)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the refusal path cannot be shown here")
+    proc = _run(["chip_smoke.py"], ROOT)
+    assert proc.returncode != 0 and _no_result(proc)
+
+
+def test_chip_smoke_alone_fails_without_the_package(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    proc = _run(["chip_smoke.py"], str(tmp_path))
+    assert proc.returncode != 0 and _no_result(proc)
