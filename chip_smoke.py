@@ -16,8 +16,9 @@ Phases (each prints one line when it starts; any failure exits non-zero):
   5. the slice: 720p frames drawn in numpy -> ``pack_chunk`` ->
      ``Pipeline.run_chunked`` (chunks of 16, 8 chunks, zone events on), with
      the kernel's launch count read around that run; then timings with CUDA
-     events: chunk program, stages, tracker, and the NMS kernel against its
-     plain version and its bound.
+     events (chunk program, stages, tracker), the chunk program's device time
+     from a profiler trace, and the NMS kernel's own duration in that trace
+     against its plain version and its bound.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -81,6 +82,42 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, name: str | None = None) -> float | None:
+    """Device time per call of fn(), from torch.profiler's CUDA trace: the
+    self device time of every kernel and copy it ran (only those whose name
+    holds ``name``, when given), summed.  None when the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if name is None or name in evt.key:
+            total_us += getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0.0))
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Time per call of fn() replayed from a CUDA graph of ``iters`` calls:
+    device time plus the graph's gap between kernels, without the host cost
+    of each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_time_ms(graph.replay, iters=5) / iters
 
 
 def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]:
@@ -262,10 +299,30 @@ def main() -> int:
     max_err = max(max_err, real_err)
     if real_err:
         fail("NMS kernel differs from the plain version on the main path's candidates")
-    kernel_ms = cuda_time_ms(lambda: nms_kernel.greedy_suppress(off, cs, d.iou_threshold),
-                             iters=200, warmup=10)
-    plain_ms = cuda_time_ms(lambda: nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold),
-                            iters=20)
+    # the kernel's own time: its duration in the profiler's trace (a CUDA
+    # graph of 100 launches as the cross-check); per Python call of the
+    # wrapper it is bound by the host's issue rate instead
+    launch = lambda: nms_kernel.greedy_suppress(off, cs, d.iou_threshold)  # noqa: E731
+    kernel_trace_ms = device_ms(launch, iters=100, name="nms_greedy_kernel")
+    kernel_graph_ms = graph_ms(launch, iters=100)
+    kernel_call_ms = cuda_time_ms(launch, iters=200, warmup=10)
+    kernel_ms = kernel_trace_ms if kernel_trace_ms is not None else kernel_graph_ms
+    # where the kernel's time goes: the same kernel on inputs that change
+    # one part of its work (the conflict bits grow with the valid rows; the
+    # serial scan has K steps whatever the data; frames run on separate SMs)
+    rand_boxes, rand_scores = synthetic_case("random", gen, K, CANDIDATES)
+    variants = {
+        "all 300 valid": (rand_boxes.to(dev), rand_scores.to(dev)),
+        "no valid candidate": (off, torch.zeros_like(cs)),
+        "one frame": (off[:1].contiguous(), cs[:1].contiguous()),
+    }
+    variant_ms = {label: device_ms(lambda bx=bx, sc=sc: nms_kernel.greedy_suppress(
+        bx, sc, d.iou_threshold), iters=50, name="nms_greedy_kernel")
+        for label, (bx, sc) in variants.items()}
+    plain = lambda: nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)  # noqa: E731
+    plain_ms = cuda_time_ms(plain, iters=20)   # host-synced rounds: wall time on the stream
+    plain_dev_ms = device_ms(plain, iters=5)
+    chunk_dev_ms = device_ms(lambda: pipe.submit_packed_yuv(planes, H, W), iters=3)
     bound_ms, bound_by = nms_bound_ms(off, cs)
     valid = (cs > 0).sum(dim=1)
     print(f"  e2e {summary['fps']:.2f} frames/s (host clock, 720p, pack + detect + track + "
@@ -273,9 +330,20 @@ def main() -> int:
     print(f"  chunk program {chunk_ms / K:.4f} ms/frame ({chunk_ms:.3f} ms per chunk of {K}); "
           f"letterbox {pre_ms / K:.4f}, forward {fwd_ms / K:.4f}, NMS {nms_ms / K:.4f}, "
           f"tracker {track_ms / K:.4f} ms/frame", flush=True)
+    if chunk_dev_ms is not None:
+        print(f"  chunk program device time {chunk_dev_ms / K:.4f} ms/frame (profiler trace); "
+              f"device idle {100 * (1 - chunk_dev_ms / chunk_ms):.1f} % of the chunk program",
+              flush=True)
     print(f"  NMS kernel {kernel_ms:.5f} ms per chunk (B={K}, K={CANDIDATES}, valid "
-          f"candidates/frame {valid.min().item()}-{valid.max().item()}); plain version "
-          f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+          f"candidates/frame {valid.min().item()}-{valid.max().item()}; "
+          f"{'profiler trace' if kernel_trace_ms is not None else 'no profiler time: CUDA graph'}); "
+          f"in a CUDA graph {kernel_graph_ms:.5f} ms; per wrapper call {kernel_call_ms:.5f} ms; "
+          f"plain version {plain_ms:.4f} ms (device time "
+          f"{'not measured' if plain_dev_ms is None else f'{plain_dev_ms:.4f} ms'}); "
+          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    print("  NMS kernel on other inputs (profiler trace, ms per launch): "
+          + ", ".join(f"{label} {'not measured' if t is None else f'{t:.5f}'}"
+                      for label, t in variant_ms.items()), flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{

@@ -5,9 +5,9 @@ this path reads: ``detection``, ``tracking`` (ByteTrack), ``events`` and
 ``parallel``.  Defaults are built in Python (``DEFAULTS`` mirrors those
 sections of the reference package's ``config/default.yaml``).  ``yaml`` is
 imported only when a YAML path is given; top-level sections the port does not
-run yet (system, ingestion, profiling, visualization) and the other trackers'
-blocks are skipped with a log line, so the reference package's YAML files
-load unmodified.
+run yet (system, ingestion, profiling, visualization), the other trackers'
+blocks and the keys of ``_REFERENCE_ONLY`` are skipped with a log line, so the
+reference package's YAML files load unmodified.  Any other unknown key raises.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ class DetectionConfig:
     fallback_weights: str | None = None
     num_classes: int = 80
     input_size: int = 640
-    batch_size: int = 1
     conf_threshold: float = 0.35
     iou_threshold: float = 0.45
     max_detections: int = 100
@@ -36,12 +35,8 @@ class DetectionConfig:
     agnostic_nms: bool = False
     nms_impl: str = "fixpoint"          # fixpoint | pallas | auto: all exact
                                         # greedy, all run the CUDA kernel here
-    topk_impl: str = "exact"            # exact | approx: both exact top-k here
     fuse_bn: bool = True                # fold BN into convs for inference
     half: bool = True                   # bf16 model compute
-    quant: str = "none"                 # only none is ported
-    calib_frames: int = 4
-    quant_scales: str | None = None
 
 
 @dataclass
@@ -57,7 +52,6 @@ class ByteTrackConfig:
     fuse_score: bool = False            # stage-1 similarity = IoU * det conf
     gate_distance: bool = False         # Mahalanobis chi2inv95(4dof) gate
     match_metric: str = "iou_distance"  # iou | iou_distance (see reference loader)
-    mot20: bool = False
 
 
 @dataclass
@@ -83,9 +77,6 @@ class AlertConfig:
     backend: str = "json_file"          # json_file | webhook
     log_path: str = "logs/events.jsonl"
     webhook_url: str = ""
-    mqtt_host: str = ""
-    mqtt_port: int = 1883
-    mqtt_topic: str = "rtmodt/events"
 
 
 @dataclass
@@ -95,17 +86,12 @@ class EventsConfig:
     alert: AlertConfig = field(default_factory=AlertConfig)
     clock: str = "stream"               # stream | wall
     max_vertices: int = 16
-    device_masks: bool = False          # only host containment is ported
 
 
 @dataclass
 class ParallelConfig:
-    num_streams: int = 1
-    mesh_axes: dict[str, int] = field(default_factory=dict)
-    donate_state: bool = True
     pipeline_depth: int = 2             # chunks in flight between submit and consume
     chunk_size: int = 1                 # frames per chunk (run_chunked uses >= 2)
-    transport: str = "packed"           # packed | i420: planar I420 either way here
 
 
 @dataclass
@@ -120,9 +106,9 @@ class PipelineConfig:
 DEFAULTS: dict[str, Any] = {
     "detection": {
         "model": "yolov8s", "weights": None, "fallback_weights": None,
-        "num_classes": 80, "input_size": 640, "batch_size": 1,
+        "num_classes": 80, "input_size": 640,
         "conf_threshold": 0.35, "iou_threshold": 0.45, "max_detections": 100,
-        "nms_candidates": 300, "topk_impl": "exact",
+        "nms_candidates": 300,
         "classes": [0, 1, 2, 3, 5, 7], "agnostic_nms": False, "half": True,
     },
     "tracking": {
@@ -131,7 +117,7 @@ DEFAULTS: dict[str, Any] = {
             "track_thresh": 0.5, "track_buffer": 30, "match_thresh": 0.8,
             "low_thresh": 0.1, "new_track_thresh": 0.5, "max_tracks": 256,
             "motion_model": "kalman", "assignment": "greedy",
-            "match_metric": "iou_distance", "mot20": False,
+            "match_metric": "iou_distance",
         },
     },
     "events": {
@@ -149,13 +135,25 @@ DEFAULTS: dict[str, Any] = {
                   "log_path": "logs/events.jsonl"},
         "clock": "stream", "max_vertices": 16,
     },
-    "parallel": {"num_streams": 1, "transport": "packed", "mesh_axes": {},
-                 "donate_state": True},
 }
 
 _SECTIONS = {"detection": DetectionConfig, "tracking": TrackingConfig,
              "events": EventsConfig, "parallel": ParallelConfig}
 _NOT_PORTED_TRACKING = ("gmc", "deepsort", "botsort", "ocsort")
+# Keys of the reference's YAML that mean nothing to the port, with the values
+# it accepts (None: any).  load_config drops them with one log line; any other
+# value raises, since the port would not do what it asks.  topk_impl approx is
+# an exact top-k here, as it is in the reference on a CPU; the port moves
+# planar I420 for either transport.
+_REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
+    ("detection",): {"batch_size": None, "calib_frames": None, "quant_scales": None,
+                     "topk_impl": ("exact", "approx"), "quant": ("none",)},
+    ("tracking", "bytetrack"): {"mot20": None},
+    ("events",): {"device_masks": (False,)},
+    ("events", "alert"): {"mqtt_host": None, "mqtt_port": None, "mqtt_topic": None},
+    ("parallel",): {"mesh_axes": None, "donate_state": None,
+                    "transport": ("packed", "i420"), "num_streams": (1,)},
+}
 
 
 def load_yaml(path: str) -> dict[str, Any]:
@@ -191,6 +189,27 @@ def _build(cls: type, data: Any, path: str) -> Any:
     return cls(**kwargs)
 
 
+def _drop_reference_only(raw: dict[str, Any]) -> None:
+    dropped = []
+    for path, keys in _REFERENCE_ONLY.items():
+        section: Any = raw
+        for name in path:
+            section = section.get(name) if isinstance(section, dict) else None
+        if not isinstance(section, dict):
+            continue
+        for key, accepted in keys.items():
+            if key not in section:
+                continue
+            value = section.pop(key)
+            name = ".".join((*path, key))
+            if accepted is not None and value not in accepted:
+                raise ValueError(f"{name}={value!r} is not ported (accepted: "
+                                 f"{', '.join(map(repr, accepted))})")
+            dropped.append(name)
+    if dropped:
+        logger.info(f"config: keys {dropped} do nothing in the port; ignored")
+
+
 def _deep_merge(base: dict, over: dict) -> dict:
     out = dict(base)
     for k, v in over.items():
@@ -205,13 +224,13 @@ def load_config(path: str | None = None,
                 overrides: dict[str, Any] | None = None) -> PipelineConfig:
     """Load and validate a config: the YAML at ``path`` (or ``DEFAULTS``)
     with the nested ``overrides`` dict merged on top."""
-    raw = load_yaml(path) if path else copy.deepcopy(DEFAULTS)
-    if overrides:
-        raw = _deep_merge(raw, overrides)
+    raw = load_yaml(path) if path else DEFAULTS
+    raw = copy.deepcopy(_deep_merge(raw, overrides or {}))
     skipped = sorted(set(raw) - set(_SECTIONS))
     if skipped:
         logger.info(f"config: sections {skipped} are not ported; ignored")
-    tracking = dict(raw.get("tracking") or {})
+    _drop_reference_only(raw)
+    tracking = raw.get("tracking") or {}
     if (tracking.get("gmc") or {}).get("method", "none") != "none":
         raise ValueError("tracking.gmc is not ported; set tracking.gmc.method: none")
     dropped = [name for name in _NOT_PORTED_TRACKING if tracking.pop(name, None) is not None]
@@ -242,10 +261,6 @@ def validate(cfg: PipelineConfig) -> None:
                              f"{d.num_classes}), got {bad}")
     if d.nms_impl not in ("fixpoint", "pallas", "auto"):
         raise ValueError(f"detection.nms_impl must be fixpoint|pallas|auto, got {d.nms_impl!r}")
-    if d.topk_impl not in ("exact", "approx"):
-        raise ValueError(f"detection.topk_impl must be exact|approx, got {d.topk_impl!r}")
-    if d.quant != "none":
-        raise ValueError(f"detection.quant={d.quant!r} is not ported (none only)")
     t = cfg.tracking
     if t.algorithm != "bytetrack":
         raise ValueError(f"tracking.algorithm={t.algorithm!r} is not ported (bytetrack only)")
@@ -261,16 +276,9 @@ def validate(cfg: PipelineConfig) -> None:
         raise ValueError(f"events.alert.backend={e.alert.backend!r} is not ported (json_file|webhook)")
     if e.alert.backend == "webhook" and not e.alert.webhook_url:
         raise ValueError("events.alert.backend=webhook requires events.alert.webhook_url")
-    if e.device_masks:
-        raise ValueError("events.device_masks is not ported; zone containment runs on the host")
     for z in e.zones:
         if len(z.polygon) < 3:
             raise ValueError(f"events zone '{z.name}' polygon needs >= 3 vertices")
         if len(z.polygon) > e.max_vertices:
             raise ValueError(f"events zone '{z.name}' polygon exceeds events.max_vertices "
                              f"({e.max_vertices})")
-    p = cfg.parallel
-    if p.transport not in ("packed", "i420"):
-        raise ValueError(f"parallel.transport={p.transport!r} is not ported (packed|i420)")
-    if p.num_streams != 1:
-        raise ValueError("parallel.num_streams > 1 is not ported")

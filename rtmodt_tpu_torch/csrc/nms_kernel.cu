@@ -124,10 +124,15 @@ extern "C" int nms_greedy_launch(const void* boxes, const void* scores, void* ke
   const int words = (k + 63) / 64;
   if (words > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = shared_bytes(k, words);
-  cudaError_t err = cudaFuncSetAttribute(
-      nms_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // Past the default 48 KB of dynamic shared memory (K above ~480) the limit
+  // must be raised first.  It is a driver call, so the main path's K = 300
+  // (19 KB) does not make it.
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   nms_greedy_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), static_cast<const float*>(scores),
       static_cast<bool*>(keep), k, words, iou_thresh);

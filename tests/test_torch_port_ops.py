@@ -146,13 +146,21 @@ def test_config_defaults_match_reference_default_yaml():
     from rtmodt_tpu.config.loader import load_config as jax_load
     from rtmodt_tpu_torch.config import load_config
 
+    def same_fields(port_section, ref_section):
+        for f in dataclasses.fields(port_section):
+            got, want = getattr(port_section, f.name), getattr(ref_section, f.name)
+            if dataclasses.is_dataclass(got):
+                same_fields(got, want)
+            elif isinstance(got, list) and got and dataclasses.is_dataclass(got[0]):
+                assert len(got) == len(want)
+                for g, w in zip(got, want):
+                    same_fields(g, w)
+            else:
+                assert got == want, f.name
+
     port, ref = load_config(), jax_load()
-    assert dataclasses.asdict(port.detection) == dataclasses.asdict(ref.detection)
-    assert dataclasses.asdict(port.events) == dataclasses.asdict(ref.events)
-    assert dataclasses.asdict(port.tracking.bytetrack) == dataclasses.asdict(ref.tracking.bytetrack)
-    assert port.tracking.trail_length == ref.tracking.trail_length
-    for f in dataclasses.fields(port.parallel):
-        assert getattr(port.parallel, f.name) == getattr(ref.parallel, f.name)
+    for name in ("detection", "tracking", "events", "parallel"):
+        same_fields(getattr(port, name), getattr(ref, name))
 
 
 def test_config_loads_reference_yaml_and_rejects_unported_settings():
@@ -167,3 +175,20 @@ def test_config_loads_reference_yaml_and_rejects_unported_settings():
         load_config(overrides={"detection": {"quant": "int8"}})
     with pytest.raises(KeyError):
         load_config(overrides={"detection": {"no_such_key": 1}})
+
+
+@pytest.mark.parametrize("section,key,accepted,refused", [
+    ("detection", "topk_impl", "approx", "fast"),
+    ("detection", "quant", "none", "int8"),
+    ("events", "device_masks", False, True),
+    ("parallel", "transport", "i420", "bgr"),
+    ("parallel", "num_streams", 1, 4),
+])
+def test_config_drops_reference_only_keys_and_refuses_unported_values(
+        section, key, accepted, refused):
+    from rtmodt_tpu_torch.config import load_config
+
+    cfg = load_config(overrides={section: {key: accepted}})
+    assert not hasattr(getattr(cfg, section), key)
+    with pytest.raises(ValueError, match=key):
+        load_config(overrides={section: {key: refused}})
