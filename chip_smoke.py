@@ -9,8 +9,11 @@ Phases (each prints one line when it starts; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port (plain nvcc, loaded with ctypes);
   3. the greedy-NMS kernel against its plain PyTorch version at the main
-     path's shapes (16 frames x 300 candidates): random, tied, zero-score
-     and class-offset cases; keep masks must be equal bit for bit;
+     path's shapes (16 frames x 300 candidates): random, tied, zero-score,
+     class-offset, scattered zero scores, identical boxes, no and one valid
+     candidate, zero-width and inverted boxes; then the kernel's edges (K
+     from 1 to 1024, 1 and 64 frames, thresholds -0.1, 0 and 0.9999); keep
+     masks must be equal bit for bit;
   4. the rich640d YOLOv8s weights through ``params_from_jax``; the bf16
      channels_last forward against a float32 forward with TF32 off;
   5. the slice: 720p frames drawn in numpy -> ``pack_chunk`` ->
@@ -18,7 +21,9 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      the kernel's launch count read around that run; then timings with CUDA
      events (chunk program, stages, tracker), the chunk program's device time
      from a profiler trace, and the NMS kernel's own duration in that trace
-     against its plain version and its bound.
+     against its plain version and its bound, also on inputs that change
+     one part of its work (no valid, all valid, one frame, K = 1024), and
+     the NMS stage's device time split into decode and suppress-and-pack.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -122,13 +127,15 @@ def graph_ms(fn, iters: int) -> float:
 
 def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]:
     """Least time for the greedy suppression of these inputs on an H100:
-    bytes = inputs read once + keep mask written once; operations = the IoU
-    test of every pair of valid candidates (i < j, 14 f32 ops: 4 min/max,
-    2 sub, 2 clamp, 1 mul, 1 add, 1 sub, 1 add eps, 1 div, 1 compare) plus
-    3 ops per valid candidate's area."""
+    bytes = every score read once (4 B) + every keep flag written once (1 B)
+    + the box (16 B) of each valid candidate only, since a row with score
+    <= 0 never suppresses and is never kept; operations = the IoU test of
+    every pair of valid candidates (i < j, 14 f32 ops: 4 min/max, 2 sub,
+    2 clamp, 1 mul, 1 add, 1 sub, 1 add eps, 1 div, 1 compare) plus 3 ops
+    per valid candidate's area."""
     b, k = scores.shape
-    nbytes = boxes.numel() * 4 + scores.numel() * 4 + b * k
     v = (scores > 0).sum(dim=1).double()
+    nbytes = scores.numel() * 4 + b * k + float(v.sum()) * 16
     ops = float((v * (v - 1) / 2 * 14 + 3 * v).sum())
     t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -145,6 +152,18 @@ def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
         scores = scores[:, ::3].repeat_interleave(3, dim=1)[:, :k].contiguous()
     elif name == "zero_score":
         scores[:, k // 2:] = 0.0
+    elif name == "holes":           # zero scores anywhere, not only a suffix
+        scores[torch.rand(b, k, generator=gen) < 0.3] = 0.0
+    elif name == "identical":       # every pair conflicts
+        boxes[:] = boxes[:, :1].clone()
+    elif name == "no_valid":
+        scores.zero_()
+    elif name == "one_valid":
+        at = torch.randint(0, k, (b, 1), generator=gen)
+        scores[torch.arange(k)[None, :] != at] = 0.0
+    elif name == "degenerate":      # zero-width and inverted boxes: zero or negative areas
+        boxes[:, 0::3, 2] = boxes[:, 0::3, 0]
+        boxes[:, 1::3, 0], boxes[:, 1::3, 2] = boxes[:, 1::3, 2].clone(), boxes[:, 1::3, 0].clone()
     elif name == "class_offset":
         from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET
 
@@ -163,7 +182,8 @@ def main() -> int:
     from rtmodt_tpu_torch.models.weights import load_into, load_npz
     from rtmodt_tpu_torch.models.yolov8 import build_model
     from rtmodt_tpu_torch.ops import nms_kernel
-    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
+    from rtmodt_tpu_torch.ops.nms import (CLASS_OFFSET, candidates_from_logits,
+                                          suppress_and_pack)
     from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
     from rtmodt_tpu_torch.runtime.pipeline import Pipeline
     from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
@@ -187,21 +207,31 @@ def main() -> int:
         if log.endswith(".log"):
             with open(os.path.join(_build.build_dir(), log)) as f:
                 for line in f:
-                    if "registers" in line or "smem" in line:
+                    if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/5 NMS kernel vs plain version (B={K}, K={CANDIDATES})")
+    phase(f"3/5 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
-    for name in ("random", "tied", "zero_score", "class_offset"):
-        boxes, scores = synthetic_case(name, gen, K, CANDIDATES)
-        want = nms_kernel.greedy_suppress_reference(boxes, scores, 0.45)
-        got = nms_kernel.greedy_suppress(boxes.to(dev), scores.to(dev), 0.45)
+    nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
+        "random", "tied", "zero_score", "class_offset", "holes", "identical", "no_valid",
+        "one_valid", "degenerate")] + [("holes", K, k, 0.45) for k in (1, 33, 65, 1024)] + [
+        ("random", K, 1024, 0.45), ("random", 1, CANDIDATES, 0.45), ("holes", 1, 65, 0.45),
+        ("random", 64, CANDIDATES, 0.45), ("holes", 64, CANDIDATES, 0.45),
+        ("identical", 1, 1024, 0.45), ("no_valid", 1, 33, 0.45),
+        ("one_valid", 16, 1024, 0.45)] + [
+        (name, K, CANDIDATES, t) for name in ("random", "degenerate") for t in (-0.1, 0.0, 0.9999)]
+    for name, b, k, t in nms_cases:
+        boxes, scores = synthetic_case(name, gen, b, k)
+        want = nms_kernel.greedy_suppress_reference(boxes, scores, t)
+        got = nms_kernel.greedy_suppress(boxes.to(dev), scores.to(dev), t)
         torch.cuda.synchronize()
         diff = int((got.cpu() != want).sum())
-        print(f"  {name}: kept {int(want.sum())}/{want.numel()}, mismatches {diff}", flush=True)
+        print(f"  {name} B={b} K={k} t={t}: valid {int((scores > 0).sum())}, kept "
+              f"{int(want.sum())}/{want.numel()}, mismatches {diff}", flush=True)
         if diff:
-            fail(f"NMS kernel keep mask differs from the plain version ({name}: {diff})")
+            fail(f"NMS kernel keep mask differs from the plain version "
+                 f"({name}, B={b}, K={k}, t={t}: {diff})")
 
     phase("4/5 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
@@ -308,17 +338,26 @@ def main() -> int:
     kernel_call_ms = cuda_time_ms(launch, iters=200, warmup=10)
     kernel_ms = kernel_trace_ms if kernel_trace_ms is not None else kernel_graph_ms
     # where the kernel's time goes: the same kernel on inputs that change
-    # one part of its work (the conflict bits grow with the valid rows; the
-    # serial scan has K steps whatever the data; frames run on separate SMs)
+    # one part of its work (conflict words and scan steps grow with the valid
+    # rows; frames run on separate SMs)
     rand_boxes, rand_scores = synthetic_case("random", gen, K, CANDIDATES)
+    big_boxes, big_scores = synthetic_case("random", gen, K, 1024)
     variants = {
         "all 300 valid": (rand_boxes.to(dev), rand_scores.to(dev)),
         "no valid candidate": (off, torch.zeros_like(cs)),
         "one frame": (off[:1].contiguous(), cs[:1].contiguous()),
+        "K=1024 all valid": (big_boxes.to(dev), big_scores.to(dev)),
     }
-    variant_ms = {label: device_ms(lambda bx=bx, sc=sc: nms_kernel.greedy_suppress(
-        bx, sc, d.iou_threshold), iters=50, name="nms_greedy_kernel")
+    variant_ms = {label: (device_ms(lambda bx=bx, sc=sc: nms_kernel.greedy_suppress(
+        bx, sc, d.iou_threshold), iters=50, name="nms_greedy_kernel"), nms_bound_ms(bx, sc))
         for label, (bx, sc) in variants.items()}
+    # the NMS stage's device time split: decode (top-k + DFL) and
+    # suppress-and-pack (class offset + K1 + max_det pack)
+    with torch.no_grad():
+        decode_dev_ms = device_ms(lambda: candidates_from_logits(
+            bd, cl, SIZE, d.conf_threshold, CANDIDATES, pipe.class_mask), iters=20)
+        pack_dev_ms = device_ms(lambda: suppress_and_pack(
+            cb, cs, cc, d.iou_threshold, d.max_detections, d.agnostic_nms), iters=20)
     plain = lambda: nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)  # noqa: E731
     plain_ms = cuda_time_ms(plain, iters=20)   # host-synced rounds: wall time on the stream
     plain_dev_ms = device_ms(plain, iters=5)
@@ -341,9 +380,14 @@ def main() -> int:
           f"plain version {plain_ms:.4f} ms (device time "
           f"{'not measured' if plain_dev_ms is None else f'{plain_dev_ms:.4f} ms'}); "
           f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
-    print("  NMS kernel on other inputs (profiler trace, ms per launch): "
-          + ", ".join(f"{label} {'not measured' if t is None else f'{t:.5f}'}"
-                      for label, t in variant_ms.items()), flush=True)
+    print("  NMS stage device time per chunk (profiler trace): decode "
+          + ("not measured" if decode_dev_ms is None else f"{decode_dev_ms:.5f} ms")
+          + ", suppress-and-pack (offset + K1 + max_det pack) "
+          + ("not measured" if pack_dev_ms is None else f"{pack_dev_ms:.5f} ms"), flush=True)
+    print("  NMS kernel on other inputs (profiler trace, ms per launch; bound): "
+          + ", ".join(f"{label} {'not measured' if t is None else f'{t:.5f}'} "
+                      f"(bound {bnd:.6f}, {by})"
+                      for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{

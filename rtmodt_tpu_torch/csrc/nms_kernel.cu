@@ -1,130 +1,189 @@
 // Exact greedy NMS suppression for a batch of frames, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel rtmodt_tpu/ops/pallas/nms_kernel.py::_nms_kernel
-// (reached through pallas_greedy_suppress's pl.pallas_call).  Same function:
-// candidates are sorted by descending score and already class-offset; a kept,
-// valid row i drops every later row j with IoU(i, j) > iou_thresh; rows with
-// score <= 0 never suppress and are never kept.
+// Replaces the TPU kernel rtmodt_tpu/ops/pallas/nms_kernel.py:24 _nms_kernel
+// (reached through pallas_greedy_suppress, whose pl.pallas_call is at :62).
+// Same function: candidates are sorted by descending score and already
+// class-offset; a kept, valid row i drops every later row j with
+// IoU(i, j) > iou_thresh; rows with score <= 0 never suppress and are never
+// kept.
 //
-// What bounds it on this card: per frame ~K^2/2 IoU tests (K = 300 is about
-// 45k tests, well under a microsecond of the SM's f32 rate) and a K-step
-// serial scan whose every step depends on the previous one.  The bytes moved
-// (20 B of input and 1 B of output per candidate) are negligible, so the
-// kernel is bound by latency: launch, one pass over shared memory, and the
-// serial scan.
+// What bounds it on this card: latency.  The roofline is bytes (a 4 B score
+// read and a 1 B keep flag written per candidate, and a 16 B box read per
+// valid candidate only; 16 frames x 300 candidates with ~77 valid a frame
+// is ~44 KB, ~0.000013 ms at 3.35 TB/s), and the v(v-1)/2 IoU tests over
+// the v valid candidates of a frame are a few MFLOP at most.  What the kernel waits on
+// is a chain: the staging loads, block-wide syncs, and greedy's scan, where
+// each row's fate depends on every earlier kept row.
 //
-// Design:
-//   * one CTA per frame; the grid is the B frames of a chunk;
-//   * boxes, areas and scores are staged in shared memory once;
-//   * all threads build the thresholded conflict matrix AS BITS in shared
-//     memory: row i holds bit j only for j > i, in W = ceil(K/64) u64 words
-//     (K = 300: 300 x 5 words = 12 KB; an f32 K x K IoU matrix would take
-//     360 KB, more than a CTA may hold);
-//   * one warp runs the serial scan: lane w keeps removed-word w in a
-//     register, the owner of row i's word broadcasts whether i is removed,
-//     and a kept row ORs its W conflict words into the lanes' registers.
+// Design: one CTA of 1024 threads per frame; the grid is the B frames.
+//   1. Stage and compact.  Each thread reads one candidate's score and box;
+//      a block-wide ballot prefix sum gives the valid rows (score > 0) their
+//      ascending compact index c, and stores vi[c] = frame row, the box and
+//      its area in shared memory.  Invalid rows get keep = 0 right away.
+//      The v valid rows are all the later steps look at: the main path has
+//      ~80 of 300.
+//   2. Conflict words by ballot, valid pairs only.  Warp w takes compact
+//      rows a = w, w + 32, ...; for each 32-column group g from a / 32 on,
+//      lane l tests column c = 32 g + l (c > a, c < v) and the warp's
+//      __ballot_sync is the u32 conflict word conf[a][g].  No atomics; words
+//      left of the diagonal group are never written and never read.
+//      Shared memory: v x ceil(v/32) u32 (12 KB at v = 300, 128 KB at
+//      K = 1024).  32 warps hide each other's shared-load and divide
+//      latency; a warp's items are a dependent chain.
+//   3. Blocked scan in warp 0.  Lane g owns removed word g in a register.
+//      For block g (compact rows 32 g .. 32 g + 31), lane g loads the
+//      block's 32 diagonal words first, then walks them: a row whose removed
+//      bit is clear is kept and ORs its word in; the chain is a test and an
+//      OR per row.  __shfl_sync broadcasts the block's keep bits, each lane
+//      w > g ORs in conf[a][w] of the kept rows a (independent loads), and
+//      the warp writes the block's keep bytes.  The scan runs v steps, not K.
 //
 // Exactness: the IoU is evaluated with the operations, in the order, of the
 // plain version (rtmodt_tpu_torch/ops/nms_kernel.py::greedy_suppress_reference
 // and the JAX _greedy_suppress): min/max, (x2-x1)*(y2-y1), area_i + area_j -
-// inter, + 1e-7, an IEEE divide, then a strict '>'.  Each step uses an
-// explicitly rounded intrinsic so that no FMA contraction can change a
-// borderline decision; the file is also built with -fmad=false.
+// inter, + 1e-7, an IEEE divide, then a strict '>' against the f32
+// threshold.  Each step uses an explicitly rounded intrinsic so that no FMA
+// contraction can change a borderline decision; the file is also built with
+// -fmad=false.  Compaction keeps the valid rows in ascending order, and an
+// invalid row neither suppresses nor is kept, so dropping it changes no
+// decision.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxWords = 32;          // one warp lane per removed-mask word
-constexpr int kMaxK = 64 * 16;         // 1024 candidates: 150 KB of shared memory
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxK = 64 * 16;          // 1024 candidates: 152 KB of shared memory
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kMaxK <= kThreads, "one candidate a thread in the compaction");
+static_assert((kMaxK + 31) / 32 <= 32, "one scan lane per removed word");
 
-__device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1));
+__device__ __forceinline__ float box_area(float4 b) {
+  return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
 }
 
-__global__ void nms_greedy_kernel(const float* __restrict__ boxes,
-                                  const float* __restrict__ scores,
-                                  bool* __restrict__ keep, int k, int words,
-                                  float iou_thresh) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* conflict = smem;                          // k * words
-  float* sx1 = reinterpret_cast<float*>(conflict + static_cast<size_t>(k) * words);
-  float* sy1 = sx1 + k;
-  float* sx2 = sy1 + k;
-  float* sy2 = sx2 + k;
-  float* sarea = sy2 + k;
-  float* sscore = sarea + k;
+// IoU(a, b) > t with the plain version's rounding and order (a is the row).
+// Most pairs do not overlap, and the IEEE divide sends a zero numerator down
+// its slow path; IEEE gives 0 / d = +-0 for d != 0 (d = +-inf included) and
+// NaN for d = 0 or NaN, so that case is decided without the divide.
+__device__ __forceinline__ bool iou_above(float4 a, float area_a, float4 b, float area_b,
+                                          float t) {
+  const float ix = fmaxf(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), 0.0f);
+  const float iy = fmaxf(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), 0.0f);
+  const float inter = __fmul_rn(ix, iy);
+  const float den = __fadd_rn(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-7f);
+  if (inter == 0.0f) return t < 0.0f && den != 0.0f && !isnan(den);
+  return __fdiv_rn(inter, den) > t;
+}
 
-  const int frame = blockIdx.x;
-  const float* fb = boxes + static_cast<size_t>(frame) * k * 4;
-  const float* fs = scores + static_cast<size_t>(frame) * k;
-  bool* fk = keep + static_cast<size_t>(frame) * k;
+__global__ void __launch_bounds__(kThreads)
+nms_greedy_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
+                  bool* __restrict__ keep, int k, float iou_thresh) {
+  extern __shared__ float4 smem[];
+  float4* sbox = smem;                                          // k, compact order
+  float* sarea = reinterpret_cast<float*>(sbox + k);            // k
+  int* svi = reinterpret_cast<int*>(sarea + k);                 // k: compact -> frame row
+  uint32_t* conf = reinterpret_cast<uint32_t*>(svi + k);        // v * words
+  __shared__ int warp_valid[kWarps];
 
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const float x1 = fb[4 * i + 0], y1 = fb[4 * i + 1];
-    const float x2 = fb[4 * i + 2], y2 = fb[4 * i + 3];
-    sx1[i] = x1; sy1[i] = y1; sx2[i] = x2; sy2[i] = y2;
-    sarea[i] = box_area(x1, y1, x2, y2);
-    sscore[i] = fs[i];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float4* fb = boxes + static_cast<size_t>(blockIdx.x) * k;
+  const float* fs = scores + static_cast<size_t>(blockIdx.x) * k;
+  bool* fk = keep + static_cast<size_t>(blockIdx.x) * k;
+
+  // 1. stage and compact: thread i takes frame row i
+  const int i = threadIdx.x;
+  float s = 0.0f;
+  float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < k) {            // both loads in flight before the ballot
+    s = fs[i];
+    b = fb[i];
+  }
+  const bool valid = s > 0.0f;
+  const unsigned ballot = __ballot_sync(kFull, valid);
+  if (lane == 0) warp_valid[warp] = __popc(ballot);
+  __syncthreads();
+  int pos = __popc(ballot & ((1u << lane) - 1u));
+  int v = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int n = warp_valid[w];
+    pos += w < warp ? n : 0;
+    v += n;
+  }
+  if (valid) {
+    sbox[pos] = b;
+    sarea[pos] = box_area(b);
+    svi[pos] = i;
+  } else if (i < k) {
+    fk[i] = false;
+  }
+  if (v == 0) return;     // uniform: every thread summed the same counts
+  __syncthreads();
+
+  // 2. conflict words: conf[a * words + g], bit l = column 32 g + l
+  const int words = (v + 31) >> 5;
+  for (int a = warp; a < v; a += kWarps) {
+    const float4 ba = sbox[a];
+    const float area_a = sarea[a];
+    for (int g = a >> 5; g < words; ++g) {
+      const int c = (g << 5) + lane;
+      const bool hit = c > a && c < v && iou_above(ba, area_a, sbox[c], sarea[c], iou_thresh);
+      const unsigned word = __ballot_sync(kFull, hit);
+      if (lane == 0) conf[a * words + g] = word;
+    }
   }
   __syncthreads();
 
-  // conflict bits: one (row, word) pair per thread iteration
-  for (int idx = threadIdx.x; idx < k * words; idx += blockDim.x) {
-    const int i = idx / words;
-    const int w = idx - i * words;
-    unsigned long long bits = 0ull;
-    const int j0 = max(w * 64, i + 1);
-    const int j1 = min(w * 64 + 64, k);
-    if (sscore[i] > 0.0f) {
-      const float ax1 = sx1[i], ay1 = sy1[i], ax2 = sx2[i], ay2 = sy2[i];
-      const float aa = sarea[i];
-      for (int j = j0; j < j1; ++j) {
-        const float ix = fmaxf(__fsub_rn(fminf(ax2, sx2[j]), fmaxf(ax1, sx1[j])), 0.0f);
-        const float iy = fmaxf(__fsub_rn(fminf(ay2, sy2[j]), fmaxf(ay1, sy1[j])), 0.0f);
-        const float inter = __fmul_rn(ix, iy);
-        const float uni = __fsub_rn(__fadd_rn(aa, sarea[j]), inter);
-        const float iou = __fdiv_rn(inter, __fadd_rn(uni, 1e-7f));
-        if (iou > iou_thresh) bits |= 1ull << (j - w * 64);
+  // 3. blocked greedy scan in warp 0; lane w owns removed word w
+  if (warp != 0) return;
+  uint32_t removed = 0u;
+  for (int g = 0; g < words; ++g) {
+    const int row0 = g << 5;
+    const int n = min(32, v - row0);
+    uint32_t kept = 0u;
+    if (lane == g) {
+      uint32_t diag[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) diag[r] = r < n ? conf[(row0 + r) * words + g] : 0u;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        if (!((removed >> r) & 1u)) removed |= diag[r];
+      }
+      kept = ~removed & (n == 32 ? kFull : (1u << n) - 1u);
+    }
+    kept = __shfl_sync(kFull, kept, g);
+    if (lane > g && lane < words) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        if ((kept >> r) & 1u) removed |= conf[(row0 + r) * words + lane];
       }
     }
-    conflict[idx] = bits;
-  }
-  __syncthreads();
-
-  // serial greedy scan in warp 0; lane w owns removed-mask word w
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    unsigned long long removed = 0ull;
-    for (int i = 0; i < k; ++i) {
-      const int owner = i >> 6;
-      const unsigned long long owner_word = __shfl_sync(0xffffffffu, removed, owner);
-      const bool alive = !((owner_word >> (i & 63)) & 1ull) && sscore[i] > 0.0f;
-      if (lane == 0) fk[i] = alive;
-      if (alive && lane < words) removed |= conflict[static_cast<size_t>(i) * words + lane];
-    }
+    if (lane < n) fk[svi[row0 + lane]] = (kept >> lane) & 1u;
   }
 }
 
-size_t shared_bytes(int k, int words) {
-  return static_cast<size_t>(k) * words * sizeof(unsigned long long) +
-         static_cast<size_t>(k) * 6 * sizeof(float);
+size_t shared_bytes(int k) {
+  const size_t words = (k + 31) / 32;
+  return static_cast<size_t>(k) * (sizeof(float4) + sizeof(float) + sizeof(int)) +
+         static_cast<size_t>(k) * words * sizeof(uint32_t);
 }
 
 }  // namespace
 
-// boxes (B, K, 4) f32, scores (B, K) f32, keep (B, K) bool: device pointers,
-// contiguous.  Launches on `stream`; returns cudaGetLastError() (or
-// cudaErrorInvalidValue for shapes the kernel does not take).
+// boxes (B, K, 4) f32 (16-byte aligned), scores (B, K) f32, keep (B, K) bool:
+// device pointers, contiguous.  Launches on `stream`; returns
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes or pointers the
+// kernel does not take).
 extern "C" int nms_greedy_launch(const void* boxes, const void* scores, void* keep,
                                  int batch, int k, float iou_thresh, void* stream) {
   if (batch <= 0 || k <= 0 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const int words = (k + 63) / 64;
-  if (words > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = shared_bytes(k, words);
-  // Past the default 48 KB of dynamic shared memory (K above ~480) the limit
+  if (reinterpret_cast<uintptr_t>(boxes) % alignof(float4) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = shared_bytes(k);
+  // Past the default 48 KB of dynamic shared memory (K above 534) the limit
   // must be raised first.  It is a driver call, so the main path's K = 300
   // (19 KB) does not make it.
   if (smem > 48 * 1024) {
@@ -134,8 +193,8 @@ extern "C" int nms_greedy_launch(const void* boxes, const void* scores, void* ke
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   nms_greedy_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const float*>(scores),
-      static_cast<bool*>(keep), k, words, iou_thresh);
+      static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+      static_cast<bool*>(keep), k, iou_thresh);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,22 @@
 """Greedy NMS suppression: the CUDA kernel's wrapper and its plain version.
 
-Port of the TPU kernel ``rtmodt_tpu/ops/pallas/nms_kernel.py::_nms_kernel``
-(``pallas_greedy_suppress``).  Function, for a batch of B frames: boxes
-``(B, K, 4)`` f32 sorted by descending score and already class-offset, scores
-``(B, K)`` -> keep ``(B, K)`` bool.  A kept, valid row i drops every later row
-j with ``IoU(i, j) > iou_thresh``; rows with score <= 0 never suppress and are
-never kept.
+Port of the TPU kernel ``rtmodt_tpu/ops/pallas/nms_kernel.py:24``
+(``_nms_kernel``, reached through ``pallas_greedy_suppress``).  Function, for
+a batch of B frames: boxes ``(B, K, 4)`` f32 sorted by descending score and
+already class-offset, scores ``(B, K)`` -> keep ``(B, K)`` bool.  A kept,
+valid row i drops every later row j with ``IoU(i, j) > iou_thresh``; rows
+with score <= 0 never suppress and are never kept.
 
-On this card the work is latency-bound, not byte- or FLOP-bound: ~K^2/2 IoU
-tests and a K-step serial scan per frame, over ~21 bytes of input and output
-per candidate.  The kernel (``csrc/nms_kernel.cu``) runs one CTA per frame,
-builds the thresholded conflict matrix as bits in shared memory with all
-threads, and runs the serial scan in one warp over those bits.
+On this card the kernel is bound by latency; its roofline is bytes (5 per
+candidate for its score and keep flag, 16 more per valid candidate for its
+box), and the IoU tests of the valid pairs are a few MFLOP at most.
+The kernel (``csrc/nms_kernel.cu``) runs one 1024-thread CTA per frame in
+three steps: it compacts the valid rows (score > 0) in order with a
+block-wide ballot prefix sum; builds the conflict matrix of the valid pairs
+only, one u32 word of 32 columns per warp ballot; and runs greedy's serial
+scan in one warp in blocks of 32 rows, where the lane that owns a block's
+removed word walks the block in registers and the other lanes take the kept
+rows' words in parallel.
 
 ``greedy_suppress`` launches the kernel for CUDA tensors (or raises) and uses
 the plain version only for tensors on the CPU.
@@ -103,6 +108,8 @@ def greedy_suppress(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f"unsupported device {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must start on a 16-byte boundary (read as float4)")
     fn, max_k = _launcher()
     b, k = scores.shape
     if k > max_k:

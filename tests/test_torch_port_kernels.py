@@ -32,10 +32,36 @@ def nms_case(name: str, seed: int, b: int = 16, k: int = 300):
     elif name == "class_offset":
         cls = rng.integers(0, 8, (b, k, 1)).astype(np.float32)
         boxes = boxes + cls * np.float32(CLASS_OFFSET)
+    elif name == "holes":           # zero scores anywhere, not only a suffix
+        scores[rng.uniform(size=(b, k)) < 0.3] = 0.0
+    elif name == "identical":       # every pair conflicts
+        boxes[:] = boxes[:, :1]
+    elif name == "no_valid":
+        scores[:] = 0.0
+    elif name == "one_valid":
+        at = rng.integers(0, k, (b, 1))
+        scores[np.arange(k)[None, :] != at] = 0.0
+    elif name == "degenerate":      # zero-width and inverted boxes: zero or negative areas
+        boxes[:, 0::3, 2] = boxes[:, 0::3, 0]
+        boxes[:, 1::3, 0], boxes[:, 1::3, 2] = boxes[:, 1::3, 2].copy(), boxes[:, 1::3, 0].copy()
     return torch.from_numpy(boxes), torch.from_numpy(scores)
 
 
-NAMES = ("random", "ties", "zero_score", "class_offset")
+NAMES = ("random", "ties", "zero_score", "class_offset", "holes", "identical",
+         "no_valid", "one_valid", "degenerate")
+# (name, seed, B, K, threshold): every case at the main path's shapes, then
+# the kernel's edges (K across the 32-row blocks up to the kernel's 1024, one
+# frame and 64 frames), then thresholds where the kernel's zero-overlap
+# decision, made without the divide, differs from 'no conflict' (t < 0) or
+# makes any overlap one (t = 0)
+KERNEL_CASES = ([(name, seed, 16, 300, 0.45) for name in NAMES for seed in (0, 1)]
+                + [("holes", k, 16, k, 0.45) for k in (1, 33, 65, 300, 1024)]
+                + [(name, k, b, k, 0.45) for name, b, k in (
+                    ("random", 16, 1024), ("random", 1, 300), ("holes", 1, 65),
+                    ("random", 64, 300), ("holes", 64, 300), ("identical", 1, 1024),
+                    ("no_valid", 1, 33), ("one_valid", 16, 1024))]
+                + [(name, 5, 16, 300, t) for name in ("random", "degenerate")
+                   for t in (-0.1, 0.0, 0.9999)])
 
 
 @pytest.fixture
@@ -56,13 +82,12 @@ def test_cpu_tensors_take_the_plain_version(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", NAMES)
-@pytest.mark.parametrize("seed", [0, 1])
-def test_nms_kernel_matches_plain_version(cuda_device, name, seed):
-    boxes, scores = nms_case(name, seed)
-    want = nms_kernel.greedy_suppress_reference(boxes, scores, 0.45)
+@pytest.mark.parametrize("name,seed,b,k,t", KERNEL_CASES)
+def test_nms_kernel_matches_plain_version(cuda_device, name, seed, b, k, t):
+    boxes, scores = nms_case(name, seed, b=b, k=k)
+    want = nms_kernel.greedy_suppress_reference(boxes, scores, t)
     before = nms_kernel.launches
-    got = nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), 0.45)
+    got = nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), t)
     torch.cuda.synchronize()
     assert nms_kernel.launches == before + 1
     assert torch.equal(got.cpu(), want)
@@ -75,3 +100,7 @@ def test_nms_kernel_rejects_what_it_does_not_take(cuda_device):
         nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), 0.45)
     with pytest.raises(ValueError):
         nms_kernel.greedy_suppress(boxes.to(cuda_device)[:, ::2], scores.to(cuda_device)[:, ::2].contiguous(), 0.45)
+    boxes, scores = nms_case("random", 2, b=1, k=300)
+    flat = torch.cat([torch.zeros(1), boxes.flatten()]).to(cuda_device)
+    with pytest.raises(ValueError):                  # float4 loads need 16-byte alignment
+        nms_kernel.greedy_suppress(flat[1:].view(1, 300, 4), scores.to(cuda_device), 0.45)
