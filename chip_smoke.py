@@ -23,7 +23,16 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      from a profiler trace, and the NMS kernel's own duration in that trace
      against its plain version and its bound, also on inputs that change
      one part of its work (no valid, all valid, one frame, K = 1024), and
-     the NMS stage's device time split into decode and suppress-and-pack.
+     the NMS stage's device time split into decode and suppress-and-pack;
+  6. the live per-frame paths: ``Pipeline.run`` on a 25-fps 720p file (a)
+     per stage, with the renderer and the annotated video saved, and (b) on
+     the packed per-frame path with 2 frames in flight: K1's launches, the
+     profiler's summary as one JSON line, track stability, zone events, the
+     saved video's frame count; K1 at B = 1 on both paths' real inputs
+     against its plain version, and its time and bound there; (c) the CLI
+     ``tools/run_pipeline_torch.py`` as a subprocess on a 25-fps file, whose
+     events must carry 25-fps stream time; (d) IDF1 / MOTA / ID switches of
+     the per-stage path on the dense 64-object scene, seed 5.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -54,6 +63,18 @@ H, W = 720, 1280
 CANDIDATES = 300
 F32_PEAK = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+# phase 6: the live per-frame paths
+LIVE_FPS = 25.0        # a file rate other than the 30 a naive stamp assumes
+N_LIVE = 96            # counted frames of each live run
+LIVE_WARMUP = 8        # profiling.warmup_frames of the live runs (reference: 50)
+WARMUP_ITERS = 3       # Pipeline.warmup's iterations: one K1 launch each
+CLI_FRAMES = 48
+CLI_DWELL = 0.3        # 8 frames at 25 fps (0.32 s); 9 at 30 fps would read 0.3
+DENSE_OBJECTS, DENSE_FRAMES, DENSE_SEED = 64, 96, 5
+IDF1_FLOOR = 0.75      # the reference recorded 0.803 on this seed (docs/RESULTS.md)
+# bf16 vs float32 BGR letterbox: both cast before the resize; bf16 keeps 8
+# bits of mantissa on 0-255 values, so a pixel may move by a few 8-bit levels
+LETTERBOX_BF16_TOL = 0.02
 # bf16 vs float32 forward: bf16 keeps 8 mantissa bits, and the rounding
 # compounds through ~70 layers; a mapping or layout fault is O(1) of the
 # logit range, an arithmetic-precision gap a few percent of it.
@@ -171,6 +192,230 @@ def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
     return boxes.contiguous(), scores.contiguous()
 
 
+def _k1_at_b1(det, frame: np.ndarray, packed: bool) -> tuple:
+    """K1's inputs at B = 1 from one real frame through the per-stage
+    (BGR letterbox) or the packed (planar I420) front, and its keep mask
+    against the plain version's.  Returns (boxes, scores, mismatches)."""
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
+
+    d = det.cfg
+    with torch.no_grad():
+        if packed:
+            (y, u, v), meta = pack_chunk(frame[None], SIZE)
+            img = planar_letterbox(*(torch.from_numpy(p).to(det.device) for p in (y, u, v)),
+                                   SIZE, meta.pad_left, meta.pad_top, dtype=det.dtype)[0]
+        else:
+            img = det.preprocess(torch.from_numpy(frame).to(det.device))
+        bd, cl = det.forward(img)
+        cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, d.conf_threshold, CANDIDATES,
+                                               det._class_mask)
+        off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
+        cs = cs.contiguous()
+    want = nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)
+    got = nms_kernel.greedy_suppress(off, cs, d.iou_threshold)
+    return off, cs, int((got.cpu() != want.cpu()).sum())
+
+
+def live_paths(smi: str) -> dict:
+    """Phase 6: the live per-frame paths, the CLI and the dense-scene
+    quality.  Returns K1's launches per run, its mismatches and its time at
+    B = 1."""
+    import cv2   # the video files, the renderer and the dense scene need it
+
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DEFAULTS
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.evaluation.mot_eval import evaluate_mot
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.utils.synthetic import dense_moving_scene, write_synthetic_video
+
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    base = {"system": {"device": DEVICE},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS},
+            "profiling": {"warmup_frames": LIVE_WARMUP, "log_interval": 0}}
+    out: dict = {"launches": {}, "mismatches": 0}
+    n_file = N_LIVE + LIVE_WARMUP
+    clip = os.path.join(OUT_DIR, "live720.mp4")
+    write_synthetic_video(clip, frames=n_file, h=H, w=W, n_objects=N_OBJECTS, fps=LIVE_FPS)
+    video = os.path.join(OUT_DIR, "annotated_per_stage.mp4")
+    runs = {
+        "per_stage": {"profiling": {"per_stage": True},
+                      "visualization": {"enabled": True, "save_video": True,
+                                        "save_path": video}},
+        "packed": {"profiling": {"per_stage": False}, "parallel": {"pipeline_depth": 2},
+                   "visualization": {"enabled": True}},
+    }
+    for name, over in runs.items():
+        label = "a" if name == "per_stage" else "b"
+        print(f"  ({label}) Pipeline.run, {name}: {n_file} frames of {W}x{H} at {LIVE_FPS:g} fps",
+              flush=True)
+        log = os.path.join(OUT_DIR, f"events_{name}.jsonl")
+        for f in (log, video):
+            if os.path.exists(f) and (f == log or name == "per_stage"):
+                os.remove(f)
+        events = {"zones": DEFAULTS["events"]["zones"] + [whole], "alert": {"log_path": log}}
+        pipe = Pipeline(load_config(overrides=_merge(_merge(base, over), {"events": events})))
+        torch.cuda.synchronize()
+        nms_kernel.launches = 0
+        summary = pipe.run(clip)
+        launches = nms_kernel.launches
+        frames = pipe.profiler.frame_count
+        out["launches"][name] = {"launches": launches, "frames": frames}
+        print(json.dumps({"path": name, "card": smi, "frames": frames, **summary}), flush=True)
+        print(f"  K1 launches {launches} for {frames} frames + {WARMUP_ITERS} warmup", flush=True)
+        if frames != n_file or launches != frames + WARMUP_ITERS:
+            fail(f"{name}: K1 launched {launches} times for {frames} frames "
+                 f"(+{WARMUP_ITERS} warmup) of {n_file}")
+        st = pipe.tracker.state
+        vis_end, births = int((st.active & (st.tsu == 0)).sum()), int(st.next_id) - 1
+        n_events = 0
+        if os.path.exists(log):
+            with open(log) as f:
+                n_events = sum(1 for _ in f)
+        print(f"  tracks: {vis_end} visible at the end, {births} ids born for {N_OBJECTS} "
+              f"objects; {n_events} zone events; zone counts "
+              f"{json.dumps(pipe.events.zone_counts())}", flush=True)
+        if vis_end < N_OBJECTS // 2 or births > 3 * N_OBJECTS:
+            fail(f"{name}: tracks not stable: {vis_end} visible, {births} ids")
+        if n_events == 0:
+            fail(f"{name}: no zone events were written")
+        if not torch.isfinite(st.boxes[st.active]).all():
+            fail(f"{name}: non-finite track boxes")
+        if name == "per_stage":
+            cap = cv2.VideoCapture(video)
+            n_video = 0
+            while cap.read()[0]:
+                n_video += 1
+            cap.release()
+            print(f"  annotated video {os.path.relpath(video, ROOT)}: {n_video} frames", flush=True)
+            if n_video != frames:
+                fail(f"annotated video has {n_video} frames for {frames} processed")
+        # K1 at B = 1 on this path's real inputs: bit-equal to the plain version
+        cap = cv2.VideoCapture(clip)
+        for _ in range(N_LIVE // 2):
+            ok, frame = cap.read()
+        cap.release()
+        if not ok:
+            fail(f"cannot read {clip}")
+        boxes, scores, diff = _k1_at_b1(pipe.detector, frame, packed=name == "packed")
+        out["mismatches"] += diff
+        print(f"  K1 at B=1 on the {name} path's inputs: valid {int((scores > 0).sum())}, "
+              f"mismatches {diff}", flush=True)
+        if diff:
+            fail(f"K1 differs from its plain version at B=1 on the {name} path")
+        if name == "per_stage":
+            from rtmodt_tpu_torch.ops.letterbox import letterbox
+
+            with torch.no_grad():
+                fdev = torch.from_numpy(frame).to(pipe.device)
+                gap = float((letterbox(fdev, SIZE, torch.bfloat16)[0].float()
+                             - letterbox(fdev, SIZE, torch.float32)[0]).abs().max())
+            print(f"  BGR letterbox: max|bf16 - f32| = {gap:.5f} (tolerance "
+                  f"{LETTERBOX_BF16_TOL})", flush=True)
+            if gap > LETTERBOX_BF16_TOL:
+                fail(f"bf16 letterbox differs from float32 by {gap}")
+            iou = pipe.cfg.detection.iou_threshold
+            launch = lambda: nms_kernel.greedy_suppress(boxes, scores, iou)  # noqa: E731
+            plain = lambda: nms_kernel.greedy_suppress_reference(boxes, scores, iou)  # noqa: E731
+            out["b1"] = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
+                         "graph_ms": graph_ms(launch, iters=100),
+                         "plain_ms": cuda_time_ms(plain, iters=20),
+                         "bound": nms_bound_ms(boxes, scores),
+                         "valid": int((scores > 0).sum())}
+            b1 = out["b1"]
+            print(f"  K1 at B=1 (per-stage inputs, {b1['valid']} valid of {CANDIDATES}): "
+                  + ("not measured" if b1["trace_ms"] is None else f"{b1['trace_ms']:.5f} ms")
+                  + f" per launch (profiler trace); CUDA graph {b1['graph_ms']:.5f} ms; plain "
+                  f"version {b1['plain_ms']:.4f} ms; bound {b1['bound'][0]:.3e} ms "
+                  f"({b1['bound'][1]})", flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+
+    # (c) the CLI on a 25-fps file: its events must carry the file's stream time
+    print(f"  (c) tools/run_pipeline_torch.py on a {LIVE_FPS:g}-fps {W}x{H} file", flush=True)
+    cli_clip = os.path.join(OUT_DIR, "cli25.mp4")
+    write_synthetic_video(cli_clip, frames=CLI_FRAMES, h=H, w=W, n_objects=N_OBJECTS,
+                          fps=LIVE_FPS, seed=3)
+    cli_log = os.path.join(OUT_DIR, "events_cli.jsonl")
+    if os.path.exists(cli_log):
+        os.remove(cli_log)
+    cli_cfg = _merge(base, {
+        "system": {"log_dir": os.path.join(OUT_DIR, "logs")},
+        "events": {"zones": [dict(whole, dwell_time_sec=CLI_DWELL, cooldown_sec=1.0)],
+                   "alert": {"log_path": cli_log}},
+        "profiling": {"per_stage": True, "warmup_frames": 4},
+        "visualization": {"enabled": True},
+    })
+    cfg_path = os.path.join(OUT_DIR, "cli.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(cli_cfg, f)          # JSON is YAML
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "run_pipeline_torch.py"),
+                           "-c", cfg_path, "-s", cli_clip], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()
+    print("  " + "\n  ".join(tail[-8:]), flush=True)
+    print(f"  CLI exit {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        fail(f"the CLI exited {proc.returncode}")
+    cli_events = []
+    if os.path.exists(cli_log):
+        with open(cli_log) as f:
+            cli_events = [json.loads(line) for line in f]
+    dwells = sorted({e["dwell_time_sec"] for e in cli_events})
+    off_grid = [x for x in dwells if abs(x * LIVE_FPS - round(x * LIVE_FPS)) > 0.13]
+    print(f"  CLI events {len(cli_events)}; dwell times {dwells} s "
+          f"(multiples of 1/{LIVE_FPS:g} s, each rounded to 0.01)", flush=True)
+    if not cli_events or off_grid:
+        fail(f"CLI events: {len(cli_events)}, dwell times off the 1/{LIVE_FPS:g} s grid: "
+             f"{off_grid}")
+
+    # (d) tracking quality of the per-stage path on the dense scene
+    print(f"  (d) quality: dense_moving_scene seed {DENSE_SEED}, {DENSE_OBJECTS} objects, "
+          f"{DENSE_FRAMES} frames, per-stage path", flush=True)
+    cfg = load_config(overrides=_merge(base, {
+        "detection": {"conf_threshold": 0.35, "classes": None},
+        "tracking": {"bytetrack": {"match_thresh": 0.8, "track_thresh": 0.3,
+                                   "new_track_thresh": 0.3}},
+        "events": {"enabled": False}, "visualization": {"enabled": False},
+        "profiling": {"per_stage": True, "warmup_frames": 0}}))
+    pipe = Pipeline(cfg)
+    nms_kernel.launches = 0
+    pipe.warmup((H, W))
+    gt: dict = {}
+    pred: dict = {}
+    t0 = time.perf_counter()
+
+    def xywh(x1, y1, x2, y2):   # as the MOT15 text files round them
+        return np.array([float(f"{v:.2f}") for v in (x1, y1, x2 - x1, y2 - y1)])
+
+    for t in range(DENSE_FRAMES):
+        frame, gt_boxes, _, ids = dense_moving_scene(t, H, W, n_objects=DENSE_OBJECTS,
+                                                     seed=DENSE_SEED)
+        fid = t + 1
+        gt[fid] = {int(i) + 1: xywh(*b) for b, i in zip(gt_boxes, ids)}
+        tracks, _, _ = pipe.step(frame, fid, fid / 30.0)
+        pred[fid] = {tr.track_id: xywh(*tr.xyxy) for tr in tracks}
+    launches = nms_kernel.launches
+    out["launches"]["dense"] = {"launches": launches, "frames": DENSE_FRAMES}
+    if launches != DENSE_FRAMES + WARMUP_ITERS:
+        fail(f"dense run: K1 launched {launches} times for {DENSE_FRAMES} frames")
+    q = evaluate_mot(gt, pred)
+    out["quality"] = q
+    print(f"  dense quality: IDF1 {q['idf1']:.4f}, MOTA {q['mota']:.4f}, ID switches "
+          f"{q['num_switches']}, HOTA {q['hota']:.4f} ({time.perf_counter() - t0:.1f} s, "
+          f"K1 launches {launches}); reference 0.803 IDF1 / 63 switches", flush=True)
+    if q["idf1"] < IDF1_FLOOR:
+        fail(f"dense-scene IDF1 {q['idf1']:.4f} < {IDF1_FLOOR}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -191,13 +436,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/5 card")
+    phase("1/6 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/5 build kernels (nvcc -> ctypes)")
+    phase("2/6 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -210,7 +455,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/5 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/6 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -233,7 +478,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/5 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/6 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -264,7 +509,7 @@ def main() -> int:
                                  dtype=torch.float32)
         rb, rc = ref(img32.permute(0, 3, 1, 2).contiguous())
         img16 = planar_letterbox(*planes, SIZE, meta.pad_left, meta.pad_top)
-        hb, hc = pipe.model(img16.permute(0, 3, 1, 2))
+        hb, hc = pipe.detector.model(img16.permute(0, 3, 1, 2))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     for label, lo, hi in (("box", rb, hb), ("cls", rc, hc)):
         if not torch.isfinite(hi).all():
@@ -276,7 +521,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/5 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/6 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -286,7 +531,7 @@ def main() -> int:
     print(f"  run: {json.dumps(summary)}; NMS kernel launches {launches}", flush=True)
     if launches == 0 or launches != summary["chunks"] or summary["frames"] != K * N_CHUNKS:
         fail(f"NMS kernel launched {launches} times for {summary['chunks']} NMS calls")
-    st = pipe.state
+    st = pipe.tracker.state
     n_active = int(st.active.sum())
     births = int(st.next_id) - 1
     vis_end = int((st.active & (st.tsu == 0)).sum())
@@ -313,14 +558,14 @@ def main() -> int:
         x16 = planar_letterbox(*planes, SIZE, meta.pad_left, meta.pad_top).permute(0, 3, 1, 2)
         pre_ms = cuda_time_ms(lambda: planar_letterbox(*planes, SIZE, meta.pad_left,
                                                        meta.pad_top), iters=20)
-        fwd_ms = cuda_time_ms(lambda: pipe.model(x16), iters=20)
-        bd, cl = pipe.model(x16)
+        fwd_ms = cuda_time_ms(lambda: pipe.detector.model(x16), iters=20)
+        bd, cl = pipe.detector.model(x16)
         nms_ms = cuda_time_ms(lambda: pipe.detect_chunk(*planes, meta), iters=10) - pre_ms - fwd_ms
         res = pipe.detect_chunk(*planes, meta)
         pipe.reset()
         track_ms = cuda_time_ms(lambda: pipe.track_chunk(res), iters=5)
         cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, d.conf_threshold, CANDIDATES,
-                                               pipe.class_mask)
+                                               pipe.detector._class_mask)
         off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
         cs = cs.contiguous()
     want = nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)
@@ -355,7 +600,7 @@ def main() -> int:
     # suppress-and-pack (class offset + K1 + max_det pack)
     with torch.no_grad():
         decode_dev_ms = device_ms(lambda: candidates_from_logits(
-            bd, cl, SIZE, d.conf_threshold, CANDIDATES, pipe.class_mask), iters=20)
+            bd, cl, SIZE, d.conf_threshold, CANDIDATES, pipe.detector._class_mask), iters=20)
         pack_dev_ms = device_ms(lambda: suppress_and_pack(
             cb, cs, cc, d.iou_threshold, d.max_detections, d.agnostic_nms), iters=20)
     plain = lambda: nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)  # noqa: E731
@@ -388,13 +633,20 @@ def main() -> int:
           + ", ".join(f"{label} {'not measured' if t is None else f'{t:.5f}'} "
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
+
+    phase("6/6 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+          "dense-scene quality")
+    live = live_paths(smi)
+    by_path = {"chunk": {"launches": launches, "frames": summary["frames"]}, **live["launches"]}
+    launches = sum(r["launches"] for r in by_path.values())
+    print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
 
     kernels = [{
         "name": "nms_greedy", "route": "cuda",
         "source": "rtmodt_tpu_torch/csrc/nms_kernel.cu",
         "replaces": "rtmodt_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "launches_by_path": by_path, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,   # no single PyTorch call computes greedy NMS
     }]

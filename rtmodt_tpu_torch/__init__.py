@@ -1,10 +1,12 @@
 """RTMODT port to PyTorch and CUDA (NVIDIA Hopper).
 
-A second package beside the JAX reference ``rtmodt_tpu``: the chunked,
-packed-I420 detect -> track -> events path (YOLOv8 + ByteTrack + zone
-events), with the reference's one TPU kernel (greedy NMS suppression) as a
-hand-written CUDA kernel (``csrc/nms_kernel.cu``).  Imports torch and numpy;
-never jax, and nothing of ``rtmodt_tpu``.
+A second package beside the JAX reference ``rtmodt_tpu``: the live pipeline
+behind the CLI (threaded reader, per-stage or packed per-frame detect ->
+track -> events, renderer, latency profiler) and the chunked, packed-I420
+throughput path (YOLOv8 + ByteTrack + zone events), with the reference's one
+TPU kernel (greedy NMS suppression) as a hand-written CUDA kernel
+(``csrc/nms_kernel.cu``).  Imports torch and numpy; never jax, and nothing
+of ``rtmodt_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,14 @@
 """Config dataclasses and loader for the port's detect -> track -> events path.
 
-The port's own copy of the sections of ``rtmodt_tpu/config/loader.py`` that
-this path reads: ``detection``, ``tracking`` (ByteTrack), ``events`` and
-``parallel``.  Defaults are built in Python (``DEFAULTS`` mirrors those
-sections of the reference package's ``config/default.yaml``).  ``yaml`` is
-imported only when a YAML path is given; top-level sections the port does not
-run yet (system, ingestion, profiling, visualization), the other trackers'
-blocks and the keys of ``_REFERENCE_ONLY`` are skipped with a log line, so the
-reference package's YAML files load unmodified.  Any other unknown key raises.
+The port's own copy of ``rtmodt_tpu/config/loader.py`` for the sections the
+port runs: ``system``, ``ingestion``, ``detection``, ``tracking``
+(ByteTrack), ``events``, ``profiling``, ``visualization`` and ``parallel``.
+Defaults are built in Python (``DEFAULTS`` mirrors the reference package's
+``config/default.yaml``).  ``yaml`` is imported only when a YAML path is
+given; the other trackers' blocks and the keys of ``_REFERENCE_ONLY`` are
+skipped with a log line, so the reference package's YAML files load
+unmodified.  Any other unknown key raises, and so does a value the port
+cannot honour (``validate`` names the ROADMAP item that will bring it).
 """
 
 from __future__ import annotations
@@ -17,7 +18,25 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
+from rtmodt_tpu_torch.device import config_device
 from rtmodt_tpu_torch.utils.logging import logger
+
+
+@dataclass
+class SystemConfig:
+    device: str = "tpu"                 # tpu | cuda -> the card; cpu -> the CPU
+    log_level: str = "INFO"
+    log_dir: str = "logs"
+
+
+@dataclass
+class IngestionConfig:
+    source: str | int = 0               # RTSP URL, video path or webcam index
+    backend: str = "opencv"             # opencv | gstreamer
+    reconnect_delay_sec: float = 2.0
+    max_reconnects: int = 10
+    target_fps: int = 0                 # 0 = native
+    resolution: list[int] | None = None  # [w, h] override
 
 
 @dataclass
@@ -89,6 +108,31 @@ class EventsConfig:
 
 
 @dataclass
+class ProfilingConfig:
+    enabled: bool = True
+    warmup_frames: int = 50
+    log_interval: int = 100
+    per_stage: bool = True              # False = the fused packed per-frame step
+    trace_dir: str | None = None        # not ported: must stay null
+
+
+@dataclass
+class VisualizationConfig:
+    enabled: bool = True
+    show_boxes: bool = True
+    show_labels: bool = True
+    show_trails: bool = True
+    show_zones: bool = True
+    show_hud: bool = True
+    trail_length: int = 30
+    save_video: bool = False
+    save_path: str = "outputs/annotated.mp4"
+    codec: str = "mp4v"                 # cv2 fourcc for save_video
+    window_name: str = "RTMODT-TPU"     # --display window title
+    mjpeg_port: int | None = None       # not ported: must stay null
+
+
+@dataclass
 class ParallelConfig:
     pipeline_depth: int = 2             # chunks in flight between submit and consume
     chunk_size: int = 1                 # frames per chunk (run_chunked uses >= 2)
@@ -96,14 +140,21 @@ class ParallelConfig:
 
 @dataclass
 class PipelineConfig:
+    system: SystemConfig = field(default_factory=SystemConfig)
+    ingestion: IngestionConfig = field(default_factory=IngestionConfig)
     detection: DetectionConfig = field(default_factory=DetectionConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     events: EventsConfig = field(default_factory=EventsConfig)
+    profiling: ProfilingConfig = field(default_factory=ProfilingConfig)
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
 # The reference package's config/default.yaml, for the sections ported here.
 DEFAULTS: dict[str, Any] = {
+    "system": {"device": "tpu", "log_level": "INFO", "log_dir": "logs"},
+    "ingestion": {"source": 0, "backend": "opencv", "reconnect_delay_sec": 2.0,
+                  "max_reconnects": 10, "target_fps": 0, "resolution": None},
     "detection": {
         "model": "yolov8s", "weights": None, "fallback_weights": None,
         "num_classes": 80, "input_size": 640,
@@ -135,10 +186,18 @@ DEFAULTS: dict[str, Any] = {
                   "log_path": "logs/events.jsonl"},
         "clock": "stream", "max_vertices": 16,
     },
+    "profiling": {"enabled": True, "warmup_frames": 50, "log_interval": 100,
+                  "per_stage": True},
+    "visualization": {"enabled": True, "show_boxes": True, "show_labels": True,
+                      "show_trails": True, "show_zones": True, "show_hud": True,
+                      "trail_length": 30, "save_video": False,
+                      "save_path": "outputs/annotated.mp4", "mjpeg_port": None},
 }
 
-_SECTIONS = {"detection": DetectionConfig, "tracking": TrackingConfig,
-             "events": EventsConfig, "parallel": ParallelConfig}
+_SECTIONS = {"system": SystemConfig, "ingestion": IngestionConfig,
+             "detection": DetectionConfig, "tracking": TrackingConfig,
+             "events": EventsConfig, "profiling": ProfilingConfig,
+             "visualization": VisualizationConfig, "parallel": ParallelConfig}
 _NOT_PORTED_TRACKING = ("gmc", "deepsort", "botsort", "ocsort")
 # Keys of the reference's YAML that mean nothing to the port, with the values
 # it accepts (None: any).  load_config drops them with one log line; any other
@@ -146,8 +205,12 @@ _NOT_PORTED_TRACKING = ("gmc", "deepsort", "botsort", "ocsort")
 # an exact top-k here, as it is in the reference on a CPU; the port moves
 # planar I420 for either transport.
 _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
+    ("system",): {"precision": None, "output_dir": None},
+    ("ingestion",): {"buffer_size": None},
+    ("profiling",): {"trace_frames": None},
     ("detection",): {"batch_size": None, "calib_frames": None, "quant_scales": None,
-                     "topk_impl": ("exact", "approx"), "quant": ("none",)},
+                     "topk_impl": ("exact", "approx"),
+                     "quant": ("none",)},          # int8: ROADMAP item 10
     ("tracking", "bytetrack"): {"mot20": None},
     ("events",): {"device_masks": (False,)},
     ("events", "alert"): {"mqtt_host": None, "mqtt_port": None, "mqtt_topic": None},
@@ -232,7 +295,8 @@ def load_config(path: str | None = None,
     _drop_reference_only(raw)
     tracking = raw.get("tracking") or {}
     if (tracking.get("gmc") or {}).get("method", "none") != "none":
-        raise ValueError("tracking.gmc is not ported; set tracking.gmc.method: none")
+        raise ValueError("tracking.gmc is not ported (ROADMAP item 7); "
+                         "set tracking.gmc.method: none")
     dropped = [name for name in _NOT_PORTED_TRACKING if tracking.pop(name, None) is not None]
     if dropped:
         logger.info(f"config: tracking blocks {dropped} are not ported; ignored")
@@ -244,6 +308,18 @@ def load_config(path: str | None = None,
 
 
 def validate(cfg: PipelineConfig) -> None:
+    config_device(cfg.system.device)
+    i = cfg.ingestion
+    if i.backend not in ("opencv", "gstreamer"):
+        raise ValueError(f"ingestion.backend must be opencv|gstreamer, got {i.backend!r}")
+    if i.resolution is not None and len(i.resolution) != 2:
+        raise ValueError(f"ingestion.resolution must be [width, height], got {i.resolution}")
+    if cfg.profiling.trace_dir:
+        raise ValueError("profiling.trace_dir is not ported (ROADMAP item 12); "
+                         "leave it null")
+    if cfg.visualization.mjpeg_port is not None:
+        raise ValueError("visualization.mjpeg_port is not ported: the MJPEG monitor "
+                         "comes with ROADMAP item 12; leave it null")
     d = cfg.detection
     if not (0.0 <= d.conf_threshold <= 1.0):
         raise ValueError(f"detection.conf_threshold must be in [0,1], got {d.conf_threshold}")
@@ -263,17 +339,20 @@ def validate(cfg: PipelineConfig) -> None:
         raise ValueError(f"detection.nms_impl must be fixpoint|pallas|auto, got {d.nms_impl!r}")
     t = cfg.tracking
     if t.algorithm != "bytetrack":
-        raise ValueError(f"tracking.algorithm={t.algorithm!r} is not ported (bytetrack only)")
+        raise ValueError(f"tracking.algorithm={t.algorithm!r} is not ported (bytetrack only; "
+                         "the others are ROADMAP item 7)")
     bt = t.bytetrack
     if bt.motion_model not in ("kalman", "none"):
         raise ValueError(f"tracking.bytetrack.motion_model must be kalman|none, got {bt.motion_model}")
     if bt.assignment != "greedy":
-        raise ValueError(f"tracking.bytetrack.assignment={bt.assignment!r} is not ported (greedy only)")
+        raise ValueError(f"tracking.bytetrack.assignment={bt.assignment!r} is not ported "
+                         "(greedy only; lapjv is ROADMAP item 4)")
     if bt.match_metric not in ("iou", "iou_distance"):
         raise ValueError(f"tracking.bytetrack.match_metric must be iou|iou_distance, got {bt.match_metric!r}")
     e = cfg.events
     if e.alert.backend not in ("json_file", "webhook"):
-        raise ValueError(f"events.alert.backend={e.alert.backend!r} is not ported (json_file|webhook)")
+        raise ValueError(f"events.alert.backend={e.alert.backend!r} is not ported "
+                         "(json_file|webhook; mqtt is ROADMAP item 6)")
     if e.alert.backend == "webhook" and not e.alert.webhook_url:
         raise ValueError("events.alert.backend=webhook requires events.alert.webhook_url")
     for z in e.zones:

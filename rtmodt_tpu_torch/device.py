@@ -17,3 +17,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r} (cuda | cpu)")
     return dev
+
+
+def config_device(system_device: str) -> str:
+    """The device a config's ``system.device`` names: ``cpu`` is the CPU;
+    ``cuda`` and ``tpu`` (the reference YAML's default, so that it loads
+    unmodified) are the card.  Anything else raises."""
+    name = str(system_device).lower()
+    if name not in ("tpu", "cuda", "cpu"):
+        raise ValueError(f"system.device must be cuda|cpu (tpu also means the card), "
+                         f"got {system_device!r}")
+    return "cpu" if name == "cpu" else "cuda"

@@ -1,14 +1,13 @@
-"""Polygon zone-intrusion, crossing and dwell-time events over chunked
-tracker outputs.
+"""Polygon zone-intrusion, crossing and dwell-time events.
 
-The port's own copy of the chunked path of
-``rtmodt_tpu/events/zone_engine.py`` (``ZoneEventEngine.process_chunk`` and
-its helpers), unchanged in behaviour: the same event JSONL schema
-(timestamp_utc, event_type, zone_name, track_id, class_id, class_name,
-dwell_time_sec, bbox_xyxy, centroid, frame_id, metadata), dwell >=
-``dwell_time_sec`` with per-(track, zone) cooldowns, stream-time clocks by
-default.  It runs on the host in numpy over the ``(K, S)`` outputs of a
-chunk.  Alert backends: ``json_file`` and ``webhook``.
+The port's own copy of ``rtmodt_tpu/events/zone_engine.py``, unchanged in
+behaviour: the same event JSONL schema (timestamp_utc, event_type,
+zone_name, track_id, class_id, class_name, dwell_time_sec, bbox_xyxy,
+centroid, frame_id, metadata), dwell >= ``dwell_time_sec`` with
+per-(track, zone) cooldowns, stream-time clocks by default.  It runs on the
+host in numpy: ``process`` over one frame's Track list (the per-frame
+paths), ``process_chunk`` over the ``(K, S)`` outputs of a chunk.  Alert
+backends: ``json_file`` and ``webhook`` (mqtt is ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -124,6 +123,114 @@ class ZoneEventEngine:
     def from_config(cls, cfg: EventsConfig, trail_length: int = 30) -> "ZoneEventEngine":
         return cls(cfg.zones, alert=cfg.alert, clock=cfg.clock,
                    trail_length=trail_length)
+
+    # ------------------------------------------------------------------
+    def process(self, tracks: Sequence, frame_id: int,
+                timestamp: float | None = None,
+                inside_mat: np.ndarray | None = None) -> list[ZoneEvent]:
+        """Check all tracks against all zones; emit + persist new events.
+
+        ``timestamp`` is the stream time of this frame (seconds).  With
+        ``clock: stream`` it drives dwell/cooldown; omitted or with
+        ``clock: wall``, wall time is used (reference behavior).
+
+        ``inside_mat`` (len(tracks), len(zones)) bool may be supplied when
+        containment was already computed elsewhere; the engine then does only
+        dwell/cooldown bookkeeping and serialization.
+        """
+        now = time.time() if (self.clock == "wall" or timestamp is None) else timestamp
+        events: list[ZoneEvent] = []
+        tracks = list(tracks)
+
+        if inside_mat is None:
+            if tracks and self.zones:
+                cents = np.array(
+                    [[(t.xyxy[0] + t.xyxy[2]) / 2, (t.xyxy[1] + t.xyxy[3]) / 2]
+                     for t in tracks],
+                    dtype=np.float64,
+                )
+                inside_mat = _points_in_polygons_np(
+                    cents, [z.polygon for z in self.zones])
+            else:
+                inside_mat = np.zeros((len(tracks), len(self.zones)), bool)
+
+        active_ids: set[int] = set()
+        for ti, track in enumerate(tracks):
+            active_ids.add(track.track_id)
+            cx = int((track.xyxy[0] + track.xyxy[2]) / 2)
+            cy = int((track.xyxy[1] + track.xyxy[3]) / 2)
+            for zi, zone in enumerate(self.zones):
+                if zone.classes is not None and int(track.class_id) not in zone.classes:
+                    continue
+                if zone.trigger == "crossing":
+                    # entry event gated on motion direction (the reference
+                    # declares `direction` but never implements it)
+                    key = (track.track_id, zone.name)
+                    was_inside = self._occupancy.get(track.track_id, {}).get(zone.name)
+                    if inside_mat[ti, zi]:
+                        occ = self._occupancy.setdefault(track.track_id, {})
+                        if was_inside is None:
+                            self._count_entry(zone.name, track.track_id)
+                        occ.setdefault(zone.name, now)
+                        if was_inside is None and self._direction_ok(zone, track):
+                            if now - self._cooldown.get(key, -1e18) >= zone.cooldown_sec:
+                                evt = ZoneEvent(
+                                    timestamp_utc=time.strftime(
+                                        "%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+                                    event_type="crossing",
+                                    zone_name=zone.name,
+                                    track_id=track.track_id,
+                                    class_id=int(track.class_id),
+                                    class_name=getattr(track, "class_name", ""),
+                                    dwell_time_sec=0.0,
+                                    bbox_xyxy=[float(v) for v in track.xyxy],
+                                    centroid=[cx, cy],
+                                    frame_id=frame_id,
+                                    metadata={**self.extra_metadata,
+                                              "direction": zone.direction or "any"},
+                                )
+                                events.append(evt)
+                                self._cooldown[key] = now
+                                self._emit(evt)
+                    else:
+                        if track.track_id in self._occupancy:
+                            self._occupancy[track.track_id].pop(zone.name, None)
+                    continue
+                if inside_mat[ti, zi]:
+                    occ = self._occupancy.setdefault(track.track_id, {})
+                    if zone.name not in occ:
+                        self._count_entry(zone.name, track.track_id)
+                    occ.setdefault(zone.name, now)
+                    dwell = now - occ[zone.name]
+                    if dwell >= zone.dwell_time_sec:
+                        key = (track.track_id, zone.name)
+                        if now - self._cooldown.get(key, -1e18) >= zone.cooldown_sec:
+                            evt = ZoneEvent(
+                                timestamp_utc=time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+                                event_type=zone.trigger,
+                                zone_name=zone.name,
+                                track_id=track.track_id,
+                                class_id=int(track.class_id),
+                                class_name=getattr(track, "class_name", ""),
+                                dwell_time_sec=round(dwell, 2),
+                                bbox_xyxy=[float(v) for v in track.xyxy],
+                                centroid=[cx, cy],
+                                frame_id=frame_id,
+                                metadata=dict(self.extra_metadata),
+                            )
+                            events.append(evt)
+                            self._cooldown[key] = now
+                            self._emit(evt)
+                else:
+                    if track.track_id in self._occupancy:
+                        self._occupancy[track.track_id].pop(zone.name, None)
+
+        # purge state of vanished tracks (reference zone_engine.py:127-130)
+        for sid in set(self._occupancy) - active_ids:
+            del self._occupancy[sid]
+        if now is not None:
+            self._prune_cooldown(float(now))
+        return events
 
     # ------------------------------------------------------------------
     def process_chunk(
@@ -382,6 +489,28 @@ class ZoneEventEngine:
             self._hist[slot, :len(run)] = run
             self._hist_len[slot] = len(run)
             self._hist_tid[slot] = tid
+
+    def get_zone_polygons(self) -> list[tuple[str, np.ndarray]]:
+        """For the visualization overlay (reference zone_engine.py:134-136)."""
+        return [(z.name, z.polygon.astype(np.int32)) for z in self.zones]
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _direction_ok(zone: Zone, track) -> bool:
+        """Motion-direction gate for crossing zones, from the track's trail."""
+        if not zone.direction:
+            return True
+        trail = getattr(track, "trail", None)
+        if not trail or len(trail) < 2:
+            return False
+        dx = trail[-1][0] - trail[0][0]
+        dy = trail[-1][1] - trail[0][1]
+        return {
+            "left_to_right": dx > 0,
+            "right_to_left": dx < 0,
+            "top_to_bottom": dy > 0,
+            "bottom_to_top": dy < 0,
+        }.get(zone.direction, True)
 
     @staticmethod
     def _parse_zone(cfg: ZoneConfig | dict) -> Zone:

@@ -25,6 +25,7 @@ import rtmodt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rtmodt_tpu_torch.__path__, "rtmodt_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+importlib.import_module("tools.run_pipeline_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
 bad = sorted(k for k in sys.modules
@@ -49,7 +50,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out["bad"] == []
     assert not out["cv2"] and not out["yaml"]
     for mod in ("rtmodt_tpu_torch.runtime.pipeline", "rtmodt_tpu_torch.ops.nms_kernel",
-                "rtmodt_tpu_torch.events.zone_engine", "rtmodt_tpu_torch._build"):
+                "rtmodt_tpu_torch.events.zone_engine", "rtmodt_tpu_torch._build",
+                "rtmodt_tpu_torch.ingestion.rtsp_reader",
+                "rtmodt_tpu_torch.profiling.latency_profiler",
+                "rtmodt_tpu_torch.ops.letterbox", "rtmodt_tpu_torch.detection.detector",
+                "rtmodt_tpu_torch.tracking.tracker", "rtmodt_tpu_torch.visualization.renderer",
+                "rtmodt_tpu_torch.evaluation.mot_eval", "rtmodt_tpu_torch.utils.synthetic"):
         assert mod in out["modules"]
 
 
@@ -63,6 +69,24 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_asked_for_the_card_without_one_exits_nonzero_and_writes_no_events(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the refusal path cannot be shown here")
+    log = tmp_path / "events.jsonl"
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(json.dumps({
+        "system": {"device": "cuda", "log_dir": str(tmp_path / "logs")},
+        "detection": {"model": "yolov8n", "input_size": 128},
+        "events": {"alert": {"log_path": str(log)}}}))
+    clip = tmp_path / "clip.mp4"
+    clip.write_bytes(b"")
+    proc = _run([os.path.join("tools", "run_pipeline_torch.py"), "-c", str(cfg), "-s",
+                 str(clip)], ROOT)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not log.exists()
 
 
 def _no_result(proc) -> bool:

@@ -1,0 +1,96 @@
+#!/usr/bin/env python
+"""CLI entry point for the PyTorch/CUDA port's live pipeline.
+
+The port's counterpart of ``tools/run_pipeline.py``, with the same flags:
+``-c/--config``, ``-s/--source``, ``--display/--no-display``,
+``--max-frames`` and ``--save-video``.  It runs ``rtmodt_tpu_torch``'s
+``Pipeline.run`` on the device that ``system.device`` names (``cpu``, or
+``cuda``/``tpu`` for the card) and prints the final profile and the zone
+counts.  Not ported, and refused with a non-zero exit: ``--mjpeg-port``
+(ROADMAP item 12), ``--resume-state``/``--state-interval`` (item 9) and more
+than one ``-s`` (multi-stream, item 8).
+
+    python tools/run_pipeline_torch.py -c cfg.yaml -s video.mp4 --max-frames 100
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from rtmodt_tpu_torch.config import load_config  # noqa: E402
+from rtmodt_tpu_torch.utils.logging import logger  # noqa: E402
+
+_NOT_PORTED = {
+    "mjpeg_port": "--mjpeg-port (the MJPEG monitor) is not ported: ROADMAP item 12",
+    "state_path": "--resume-state is not ported: ROADMAP item 9",
+    "state_interval": "--state-interval (resume snapshots) is not ported: ROADMAP item 9",
+}
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-c", "--config", dest="config_path", default=None,
+                    help="YAML config path (default: the built-in defaults, "
+                         "which mirror the reference's default.yaml)")
+    ap.add_argument("-s", "--source", action="append", default=[],
+                    help="override ingestion.source (RTSP URL / file / webcam index)")
+    ap.add_argument("--display", action=argparse.BooleanOptionalAction, default=False,
+                    help="show the annotated window")
+    ap.add_argument("--max-frames", type=int, default=None, help="stop after N frames")
+    ap.add_argument("--save-video", action="store_true", default=False,
+                    help="write the annotated video to visualization.save_path")
+    ap.add_argument("--mjpeg-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume-state", dest="state_path", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--state-interval", type=int, default=None, help=argparse.SUPPRESS)
+    return ap.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
+    for key, msg in _NOT_PORTED.items():
+        if getattr(args, key) is not None:
+            raise SystemExit(f"run_pipeline_torch: {msg}")
+    if len(args.source) > 1:
+        raise SystemExit("run_pipeline_torch: more than one -s (multi-stream) is not "
+                         "ported: ROADMAP item 8")
+
+    overrides: dict = {}
+    if args.source:
+        overrides["ingestion"] = {"source": args.source[0]}
+    if args.save_video:
+        overrides["visualization"] = {"save_video": True}
+    cfg = load_config(args.config_path, overrides)
+
+    os.makedirs(cfg.system.log_dir, exist_ok=True)
+    logger.setLevel(logging.DEBUG)
+    for h in logger.handlers:
+        h.setLevel(cfg.system.log_level.upper())
+    log_file = logging.FileHandler(os.path.join(cfg.system.log_dir, "pipeline.log"))
+    log_file.setLevel(logging.DEBUG)
+    log_file.setFormatter(logging.Formatter("%(asctime)s | %(levelname)-8s | %(message)s"))
+    logger.addHandler(log_file)
+
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+
+    try:
+        pipe = Pipeline(cfg)
+    except RuntimeError as e:     # asked for the card where there is none
+        raise SystemExit(f"run_pipeline_torch: {e}")
+    summary = pipe.run(display=args.display, max_frames=args.max_frames)
+    if pipe.events is not None and summary is not None:
+        summary = dict(summary)
+        summary["zone_counts"] = pipe.events.zone_counts()
+    if summary:
+        print("\n=== final profile ===")
+        for k, v in sorted(summary.items()):
+            print(f"  {k}: {v:.2f}" if isinstance(v, float) else f"  {k}: {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
