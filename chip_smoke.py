@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (each prints one line when it starts; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the port (plain nvcc, loaded with ctypes);
+  2. build every native source of the port (the CUDA kernels with plain
+     nvcc, the host LAPJV solver with g++; loaded with ctypes);
   3. the greedy-NMS kernel against its plain PyTorch version at the main
      path's shapes (16 frames x 300 candidates): random, tied, zero-score,
      class-offset, scattered zero scores, identical boxes, no and one valid
@@ -30,9 +31,20 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      profiler's summary as one JSON line, track stability, zone events, the
      saved video's frame count; K1 at B = 1 on both paths' real inputs
      against its plain version, and its time and bound there; (c) the CLI
-     ``tools/run_pipeline_torch.py`` as a subprocess on a 25-fps file, whose
-     events must carry 25-fps stream time; (d) IDF1 / MOTA / ID switches of
-     the per-stage path on the dense 64-object scene, seed 5.
+     ``tools/run_pipeline_torch.py`` as a subprocess on a 25-fps file with
+     botsort and GMC, whose events must carry 25-fps stream time; (d) IDF1 /
+     MOTA / ID switches of the per-stage path on the dense 64-object scene,
+     seed 5;
+  7. the other trackers and camera-motion compensation, with the shipped
+     ``checkpoints/embedder.npz``: (a) ``run_chunked`` with deepsort + GMC
+     (the appearance chunk program; its device time and idle share, what the
+     ROI crops, the embedder and GMC cost per frame), (b) ``Pipeline.run``
+     per stage with botsort + GMC, (c) packed per frame with ocsort + GMC,
+     (d) per stage with ByteTrack on host LAPJV; K1's launches and K1 bit
+     for bit against its plain version on each of these paths' inputs;
+     (e) ``tools/compare_trackers_torch.py``'s four oracle-detection
+     scenarios, one row per tracker (every "+ GMC" shake row must reach
+     IDF1 0.99); (f) the dense scene of 6 (d) with deepsort and botsort.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -72,6 +84,13 @@ CLI_FRAMES = 48
 CLI_DWELL = 0.3        # 8 frames at 25 fps (0.32 s); 9 at 30 fps would read 0.3
 DENSE_OBJECTS, DENSE_FRAMES, DENSE_SEED = 64, 96, 5
 IDF1_FLOOR = 0.75      # the reference recorded 0.803 on this seed (docs/RESULTS.md)
+# phase 7: the other trackers and camera-motion compensation
+EMBEDDER = os.path.join(ROOT, "checkpoints", "embedder.npz")
+N_LAPJV = 32           # counted frames of the short host-LAPJV run
+COMPARE = {"bounce": 60, "stopgo": 60, "shake": 60, "dense": 60}   # frames per scenario
+GMC_SHAKE_IDF1 = 0.99  # every "+ GMC" row of the shake scenario (reference 0.997)
+# docs/RESULTS.md, dense seed 5 at 64 objects, full detection
+DENSE_REF = {"deepsort": (0.793, 46), "botsort": (0.807, 58)}
 # bf16 vs float32 BGR letterbox: both cast before the resize; bf16 keeps 8
 # bits of mantissa on 0-255 values, so a pixel may move by a few 8-bit levels
 LETTERBOX_BF16_TOL = 0.02
@@ -218,6 +237,38 @@ def _k1_at_b1(det, frame: np.ndarray, packed: bool) -> tuple:
     return off, cs, int((got.cpu() != want.cpu()).sum())
 
 
+def dense_run(cfg) -> tuple[dict, int, float]:
+    """The per-stage path over the dense scene (``DENSE_OBJECTS`` objects,
+    seed ``DENSE_SEED``): (MOT metrics, K1 launches with warmup, seconds)."""
+    from rtmodt_tpu_torch.evaluation.mot_eval import evaluate_mot
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.utils.synthetic import dense_moving_scene
+
+    pipe = Pipeline(cfg)
+    nms_kernel.launches = 0
+    pipe.warmup((H, W))
+    gt: dict = {}
+    pred: dict = {}
+    t0 = time.perf_counter()
+
+    def xywh(x1, y1, x2, y2):   # as the MOT15 text files round them
+        return np.array([float(f"{v:.2f}") for v in (x1, y1, x2 - x1, y2 - y1)])
+
+    for t in range(DENSE_FRAMES):
+        frame, gt_boxes, _, ids = dense_moving_scene(t, H, W, n_objects=DENSE_OBJECTS,
+                                                     seed=DENSE_SEED)
+        fid = t + 1
+        gt[fid] = {int(i) + 1: xywh(*b) for b, i in zip(gt_boxes, ids)}
+        tracks, _, _ = pipe.step(frame, fid, fid / 30.0)
+        pred[fid] = {tr.track_id: xywh(*tr.xyxy) for tr in tracks}
+    launches = nms_kernel.launches
+    seconds = time.perf_counter() - t0
+    del pipe
+    torch.cuda.empty_cache()
+    return evaluate_mot(gt, pred), launches, seconds
+
+
 def live_paths(smi: str) -> dict:
     """Phase 6: the live per-frame paths, the CLI and the dense-scene
     quality.  Returns K1's launches per run, its mismatches and its time at
@@ -227,10 +278,9 @@ def live_paths(smi: str) -> dict:
     from rtmodt_tpu_torch.config import load_config
     from rtmodt_tpu_torch.config.loader import DEFAULTS
     from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
-    from rtmodt_tpu_torch.evaluation.mot_eval import evaluate_mot
     from rtmodt_tpu_torch.ops import nms_kernel
     from rtmodt_tpu_torch.runtime.pipeline import Pipeline
-    from rtmodt_tpu_torch.utils.synthetic import dense_moving_scene, write_synthetic_video
+    from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
 
     whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
              "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
@@ -337,7 +387,8 @@ def live_paths(smi: str) -> dict:
         torch.cuda.empty_cache()
 
     # (c) the CLI on a 25-fps file: its events must carry the file's stream time
-    print(f"  (c) tools/run_pipeline_torch.py on a {LIVE_FPS:g}-fps {W}x{H} file", flush=True)
+    print(f"  (c) tools/run_pipeline_torch.py on a {LIVE_FPS:g}-fps {W}x{H} file, botsort + GMC",
+          flush=True)
     cli_clip = os.path.join(OUT_DIR, "cli25.mp4")
     write_synthetic_video(cli_clip, frames=CLI_FRAMES, h=H, w=W, n_objects=N_OBJECTS,
                           fps=LIVE_FPS, seed=3)
@@ -346,6 +397,7 @@ def live_paths(smi: str) -> dict:
         os.remove(cli_log)
     cli_cfg = _merge(base, {
         "system": {"log_dir": os.path.join(OUT_DIR, "logs")},
+        "tracking": {"algorithm": "botsort", "gmc": {"method": "phase"}},
         "events": {"zones": [dict(whole, dwell_time_sec=CLI_DWELL, cooldown_sec=1.0)],
                    "alert": {"log_path": cli_log}},
         "profiling": {"per_stage": True, "warmup_frames": 4},
@@ -385,34 +437,242 @@ def live_paths(smi: str) -> dict:
                                    "new_track_thresh": 0.3}},
         "events": {"enabled": False}, "visualization": {"enabled": False},
         "profiling": {"per_stage": True, "warmup_frames": 0}}))
-    pipe = Pipeline(cfg)
-    nms_kernel.launches = 0
-    pipe.warmup((H, W))
-    gt: dict = {}
-    pred: dict = {}
-    t0 = time.perf_counter()
-
-    def xywh(x1, y1, x2, y2):   # as the MOT15 text files round them
-        return np.array([float(f"{v:.2f}") for v in (x1, y1, x2 - x1, y2 - y1)])
-
-    for t in range(DENSE_FRAMES):
-        frame, gt_boxes, _, ids = dense_moving_scene(t, H, W, n_objects=DENSE_OBJECTS,
-                                                     seed=DENSE_SEED)
-        fid = t + 1
-        gt[fid] = {int(i) + 1: xywh(*b) for b, i in zip(gt_boxes, ids)}
-        tracks, _, _ = pipe.step(frame, fid, fid / 30.0)
-        pred[fid] = {tr.track_id: xywh(*tr.xyxy) for tr in tracks}
-    launches = nms_kernel.launches
+    q, launches, seconds = dense_run(cfg)
     out["launches"]["dense"] = {"launches": launches, "frames": DENSE_FRAMES}
     if launches != DENSE_FRAMES + WARMUP_ITERS:
         fail(f"dense run: K1 launched {launches} times for {DENSE_FRAMES} frames")
-    q = evaluate_mot(gt, pred)
     out["quality"] = q
     print(f"  dense quality: IDF1 {q['idf1']:.4f}, MOTA {q['mota']:.4f}, ID switches "
-          f"{q['num_switches']}, HOTA {q['hota']:.4f} ({time.perf_counter() - t0:.1f} s, "
+          f"{q['num_switches']}, HOTA {q['hota']:.4f} ({seconds:.1f} s, "
           f"K1 launches {launches}); reference 0.803 IDF1 / 63 switches", flush=True)
     if q["idf1"] < IDF1_FLOOR:
         fail(f"dense-scene IDF1 {q['idf1']:.4f} < {IDF1_FLOOR}")
+    return out
+
+
+def _k1_chunk(pipe, planes, meta) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """K1's inputs on a chunk's real candidates and its mismatches against
+    the plain version: (boxes, scores, mismatches)."""
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
+    from rtmodt_tpu_torch.ops.yuv import planar_letterbox
+
+    d = pipe.cfg.detection
+    with torch.no_grad():
+        img = planar_letterbox(*planes, SIZE, meta.pad_left, meta.pad_top,
+                               dtype=pipe.detector.dtype).permute(0, 3, 1, 2)
+        bd, cl = pipe.detector.model(img)
+        cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, d.conf_threshold, CANDIDATES,
+                                               pipe.detector._class_mask)
+        off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
+        cs = cs.contiguous()
+    want = nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)
+    got = nms_kernel.greedy_suppress(off, cs, d.iou_threshold)
+    return off, cs, int((got.cpu() != want.cpu()).sum())
+
+
+def tracker_paths(smi: str, frames: np.ndarray) -> dict:
+    """Phase 7: deepsort / botsort / ocsort with GMC and host-LAPJV ByteTrack
+    on the three paths, the oracle-detection tracker comparison and the
+    dense scene with the appearance trackers.  Returns K1's launches per
+    run and its mismatches."""
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.gmc import half_res_luma, luma_grids, phase_shift
+    from rtmodt_tpu_torch.ops.roi import crop_yuv_rgb
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, pad_planes
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from tools import compare_trackers_torch as compare
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    gmc = {"method": "phase"}
+    base = {"system": {"device": DEVICE},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS},
+            "tracking": {"deepsort": {"embedder": EMBEDDER}, "botsort": {"embedder": EMBEDDER}},
+            "profiling": {"warmup_frames": LIVE_WARMUP, "log_interval": 0}}
+
+    def check_k1(name: str, diff: int, valid: int) -> None:
+        out["mismatches"] += diff
+        print(f"  K1 on the {name} path's inputs: valid {valid}, mismatches {diff}", flush=True)
+        if diff:
+            fail(f"K1 differs from its plain version on the {name} path")
+
+    # (a) the appearance chunk program: deepsort + GMC, chunks of K 720p frames
+    print(f"  (a) run_chunked, deepsort + GMC: {N_CHUNKS} chunks of {K} frames of {W}x{H}",
+          flush=True)
+    log = os.path.join(OUT_DIR, "events_deepsort_chunked.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    cfg = load_config(overrides=_merge(base, {
+        "tracking": {"algorithm": "deepsort", "gmc": gmc},
+        "parallel": {"chunk_size": K},
+        "events": {"zones": [whole], "alert": {"log_path": log}},
+        "profiling": {"per_stage": False, "warmup_frames": 0},
+        "visualization": {"enabled": False}}))
+    pipe = Pipeline(cfg)
+    pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
+    pipe.reset()
+    torch.cuda.synchronize()
+    nms_kernel.launches = 0
+    summary = pipe.run_chunked(list(frames))
+    launches = nms_kernel.launches
+    out["launches"]["deepsort_gmc_chunk"] = {"launches": launches, "chunks": summary["chunks"],
+                                             "frames": summary["frames"]}
+    print("  " + json.dumps({"path": "deepsort_gmc_chunk", "card": smi, **summary}), flush=True)
+    print(f"  K1 launches {launches} for {summary['chunks']} chunks", flush=True)
+    if launches != summary["chunks"] or summary["frames"] != K * N_CHUNKS:
+        fail(f"deepsort chunked: K1 launched {launches} times for {summary['chunks']} chunks")
+    st = pipe.tracker.state
+    confirmed = st.active & (st.tsu == 0) & (st.age >= pipe.tracker.cfg.n_init)
+    births = int(st.next_id) - 1
+    n_events = sum(1 for _ in open(log)) if os.path.exists(log) else 0
+    print(f"  tracks: {int(confirmed.sum())} visible at the end, {births} ids born for "
+          f"{N_OBJECTS} objects; {n_events} zone events", flush=True)
+    if int(confirmed.sum()) < N_OBJECTS // 2 or births > 3 * N_OBJECTS or n_events == 0:
+        fail(f"deepsort chunked: tracks not stable or no events ({int(confirmed.sum())} "
+             f"visible, {births} ids, {n_events} events)")
+    if not (torch.isfinite(st.boxes[st.active]).all() and torch.isfinite(st.feat).all()):
+        fail("deepsort chunked: non-finite track state")
+    (y, u, v), meta = pack_chunk(frames[:K], SIZE)
+    planes = tuple(torch.from_numpy(p_).to(DEVICE) for p_ in (y, u, v))
+    _, scores, diff = _k1_chunk(pipe, planes, meta)
+    check_k1("deepsort chunked", diff, int((scores > 0).sum()))
+    pipe.reset()
+    chunk_ms = cuda_time_ms(lambda: pipe.submit_packed_yuv(planes, H, W), iters=5)
+    chunk_dev_ms = device_ms(lambda: pipe.submit_packed_yuv(planes, H, W), iters=3)
+    with torch.no_grad():
+        res = pipe.detect_chunk(*planes, meta, to_source=False)
+        crop_hw = tuple(pipe.tracker.cfg.crop_hw)
+        yp, up, vp = pad_planes(*planes, SIZE, meta.pad_left, meta.pad_top)
+
+        def crops_fn():   # as Pipeline.embed_chunk takes them: one batched gather
+            return crop_yuv_rgb(yp.float(), up.float(), vp.float(), res.boxes, crop_hw)
+        crops = crops_fn()
+        flat = crops.reshape(-1, *crops.shape[2:])
+        crop_ms = cuda_time_ms(crops_fn, iters=10)
+        emb_ms = cuda_time_ms(lambda: pipe.tracker.embedder(flat), iters=10)
+        emb_dev_ms = device_ms(lambda: pipe.tracker.embedder(flat), iters=5)
+        grids = luma_grids(half_res_luma(planes[0]), cfg.tracking.gmc.grid)
+        grid_ms = cuda_time_ms(lambda: luma_grids(half_res_luma(planes[0]),
+                                                  cfg.tracking.gmc.grid), iters=10)
+        shift_ms = cuda_time_ms(lambda: phase_shift(grids[0], grids[1]), iters=20)
+    out["chunk"] = {"chunk_ms": chunk_ms, "chunk_dev_ms": chunk_dev_ms, "crop_ms": crop_ms,
+                    "embed_ms": emb_ms, "embed_dev_ms": emb_dev_ms, "grid_ms": grid_ms,
+                    "shift_ms": shift_ms}
+    print(f"  chunk program {chunk_ms / K:.4f} ms/frame ({chunk_ms:.3f} ms per chunk of {K}, "
+          f"CUDA events); device time "
+          + ("not measured" if chunk_dev_ms is None else
+             f"{chunk_dev_ms / K:.4f} ms/frame, device idle "
+             f"{100 * (1 - chunk_dev_ms / chunk_ms):.1f} % of the chunk program")
+          + f"; ROI crops {crop_ms / K:.4f} ms/frame ({flat.shape[0] // K} crops of "
+          f"{crop_hw[0]}x{crop_hw[1]}), embedder {emb_ms / K:.4f} ms/frame (device "
+          + ("not measured" if emb_dev_ms is None else f"{emb_dev_ms / K:.4f}")
+          + f"; float32, TF32 off), GMC grids {grid_ms / K:.4f} ms/frame, phase_shift "
+          f"{shift_ms:.4f} ms/frame", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # (b)-(d) the per-frame paths on the 25-fps file of phase 6
+    clip = os.path.join(OUT_DIR, "live720.mp4")
+    n_file = N_LIVE + LIVE_WARMUP
+    runs = {
+        "botsort_gmc_per_stage": ("b", {"tracking": {"algorithm": "botsort", "gmc": gmc},
+                                        "profiling": {"per_stage": True}}, n_file),
+        "ocsort_gmc_packed": ("c", {"tracking": {"algorithm": "ocsort", "gmc": gmc},
+                                    "profiling": {"per_stage": False},
+                                    "parallel": {"pipeline_depth": 2}}, n_file),
+        "bytetrack_lapjv_per_stage": ("d", {"tracking": {"bytetrack": {"assignment": "lapjv"}},
+                                            "profiling": {"per_stage": True,
+                                                          "warmup_frames": 4}}, N_LAPJV),
+    }
+    import cv2
+
+    cap = cv2.VideoCapture(clip)
+    for _ in range(N_LIVE // 2):
+        ok, frame = cap.read()
+    cap.release()
+    if not ok:
+        fail(f"cannot read {clip}")
+    for name, (label, over, n) in runs.items():
+        print(f"  ({label}) Pipeline.run, {name}: {n} frames of {W}x{H} at {LIVE_FPS:g} fps",
+              flush=True)
+        log = os.path.join(OUT_DIR, f"events_{name}.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        events = {"zones": [whole], "alert": {"log_path": log}}
+        pipe = Pipeline(load_config(overrides=_merge(_merge(base, over), {
+            "events": events, "visualization": {"enabled": True}})))
+        torch.cuda.synchronize()
+        nms_kernel.launches = 0
+        summary = pipe.run(clip, max_frames=n)
+        launches = nms_kernel.launches
+        frames_done = pipe.profiler.frame_count
+        out["launches"][name] = {"launches": launches, "frames": frames_done}
+        print("  " + json.dumps({"path": name, "card": smi, "frames": frames_done, **summary}),
+              flush=True)
+        print(f"  K1 launches {launches} for {frames_done} frames + {WARMUP_ITERS} warmup",
+              flush=True)
+        if frames_done != n or launches != frames_done + WARMUP_ITERS:
+            fail(f"{name}: K1 launched {launches} times for {frames_done} frames "
+                 f"(+{WARMUP_ITERS} warmup) of {n}")
+        n_events = sum(1 for _ in open(log)) if os.path.exists(log) else 0
+        print(f"  {n_events} zone events; zone counts {json.dumps(pipe.events.zone_counts())}",
+              flush=True)
+        if n_events == 0:
+            fail(f"{name}: no zone events were written")
+        if pipe.tracker._host is None:
+            st = pipe.tracker.state
+            if not torch.isfinite(st.boxes[st.active]).all():
+                fail(f"{name}: non-finite track boxes")
+        _, scores, diff = _k1_at_b1(pipe.detector, frame, packed=name.endswith("packed"))
+        check_k1(name, diff, int((scores > 0).sum()))
+        del pipe
+        torch.cuda.empty_cache()
+
+    # (e) the oracle-detection scenarios of tools/compare_trackers_torch.py
+    print("  (e) tools/compare_trackers_torch.py on the card (oracle detections)", flush=True)
+    out["compare"] = {}
+    for scenario, n in COMPARE.items():
+        t0 = time.perf_counter()
+        frames_bgr, gt = compare.build(scenario, n, pairs=3, objects=64)
+        for name, kwargs in compare.tracker_configs(scenario, EMBEDDER):
+            row = compare.run_tracker(name, kwargs, frames_bgr, gt, DEVICE)
+            out["compare"][f"{scenario}/{name}"] = row
+            print(f"    {scenario:6s} {name:28s} IDF1 {row['idf1']:.4f}  MOTA {row['mota']:.4f}"
+                  f"  HOTA {row['hota']:.4f}  AssA {row['ass_a']:.4f}  switches "
+                  f"{row['switches']}", flush=True)
+            if scenario == "shake" and name.endswith("_gmc") and row["idf1"] < GMC_SHAKE_IDF1:
+                fail(f"shake {name}: IDF1 {row['idf1']} < {GMC_SHAKE_IDF1}")
+        print(f"    {scenario}: {n} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (f) the dense scene, full detection, per stage, with the appearance trackers
+    for algorithm in ("deepsort", "botsort"):
+        print(f"  (f) dense_moving_scene seed {DENSE_SEED}, {DENSE_OBJECTS} objects, "
+              f"{DENSE_FRAMES} frames, per stage, {algorithm} ({os.path.basename(EMBEDDER)})",
+              flush=True)
+        cfg = load_config(overrides=_merge(base, {
+            "detection": {"conf_threshold": 0.35, "classes": None},
+            "tracking": {"algorithm": algorithm,
+                         "deepsort": {"min_confidence": 0.3},
+                         "botsort": {"track_thresh": 0.3, "new_track_thresh": 0.3,
+                                     "match_thresh": 0.8}},
+            "events": {"enabled": False}, "visualization": {"enabled": False},
+            "profiling": {"per_stage": True, "warmup_frames": 0}}))
+        q, launches, seconds = dense_run(cfg)
+        out["launches"][f"dense_{algorithm}"] = {"launches": launches, "frames": DENSE_FRAMES}
+        out[f"dense_{algorithm}"] = q
+        ref_idf1, ref_sw = DENSE_REF[algorithm]
+        print(f"  dense {algorithm}: IDF1 {q['idf1']:.4f}, MOTA {q['mota']:.4f}, ID switches "
+              f"{q['num_switches']}, HOTA {q['hota']:.4f} ({seconds:.1f} s, K1 launches "
+              f"{launches}); reference {ref_idf1} IDF1 / {ref_sw} switches", flush=True)
+        if launches != DENSE_FRAMES + WARMUP_ITERS:
+            fail(f"dense {algorithm}: K1 launched {launches} times for {DENSE_FRAMES} frames")
+        if q["idf1"] < IDF1_FLOOR:
+            fail(f"dense {algorithm}: IDF1 {q['idf1']:.4f} < {IDF1_FLOOR}")
     return out
 
 
@@ -436,13 +696,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/6 card")
+    phase("1/7 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/6 build kernels (nvcc -> ctypes)")
+    phase("2/7 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -455,7 +715,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/6 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/7 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -478,7 +738,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/6 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/7 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -521,7 +781,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/6 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/7 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -634,10 +894,14 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/6 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/7 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    by_path = {"chunk": {"launches": launches, "frames": summary["frames"]}, **live["launches"]}
+    phase("7/7 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+          "packed, host LAPJV; oracle-detection comparison; dense scene")
+    trackers = tracker_paths(smi, frames)
+    by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
+               **live["launches"], **trackers["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,13 +1,15 @@
-"""Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Every ``*.cu`` file in ``csrc/`` becomes its own shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/kernels-<hash of the sources and flags>/`` under the repository root
-(listed in ``.gitignore``), so an unchanged source is not rebuilt.  A failed
-build raises with nvcc's stderr; nothing falls back.
+Every ``*.cu`` file in ``csrc/`` (a CUDA kernel, built with plain ``nvcc``)
+and every ``*.cpp`` file (host code, built with the host C++ compiler)
+becomes its own shared library with a plain C interface (no PyTorch headers,
+so a build takes seconds).  Libraries go to ``build/kernels-<hash of the
+sources and flags>/`` under the repository root (listed in ``.gitignore``),
+so an unchanged source is not rebuilt.  A failed build raises with the
+compiler's stderr; nothing falls back.
 
-Building is explicit or happens at a kernel's first launch on a CUDA tensor,
-never at import.
+Building is explicit or happens at a library's first use (a kernel's first
+launch on a CUDA tensor), never at import.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build")
 # (the source also uses explicitly rounded intrinsics); no fast math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -36,8 +39,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
+    """Every native source: CUDA (``.cu``) and host C++ (``.cpp``)."""
     return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-                  if f.endswith(".cu"))
+                  if f.endswith((".cu", ".cpp")))
 
 
 def find_nvcc() -> str:
@@ -50,8 +54,16 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_cxx() -> str:
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) on PATH; the port's host "
+                           "sources cannot be built")
+    return cxx
+
+
 def build_dir() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + CXX_FLAGS).encode())
     for src in sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -59,41 +71,45 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, f"kernels-{h.hexdigest()[:16]}")
 
 
-def _compile(nvcc: str, src: str, out: str) -> None:
+def _compile(src: str, out: str) -> None:
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    if src.endswith(".cu"):
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    else:
+        cmd = [find_cxx(), *CXX_FLAGS, "-o", tmp, src]
+    tool = os.path.basename(cmd[0])
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s on {src}") from e
+        raise RuntimeError(f"{tool} timed out after {BUILD_TIMEOUT_S} s on {src}") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+        raise RuntimeError(f"{tool} failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stderr}")
     with open(out + ".log", "w") as f:   # ptxas register / shared-memory report
         f.write(proc.stderr)
     os.replace(tmp, out)                 # atomic: a concurrent build never sees half a file
 
 
-def build_all() -> dict[str, float]:
-    """Compile every source whose library is missing, all nvcc runs at once.
-    Returns {library name: seconds} for the libraries built in this call."""
+def build_all(names: list[str] | None = None) -> dict[str, float]:
+    """Compile every source (or those of ``names``) whose library is
+    missing, all compiler runs at once.  Returns {library name: seconds} for
+    the libraries built in this call."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     todo = []
     for src in sources():
         name = os.path.splitext(os.path.basename(src))[0]
         out = os.path.join(out_dir, f"lib{name}.so")
-        if not os.path.exists(out):
+        if (names is None or name in names) and not os.path.exists(out):
             todo.append((name, src, out))
     if not todo:
         return {}
-    nvcc = find_nvcc()
 
     def one(item):
         name, src, out = item
         t0 = time.perf_counter()
-        _compile(nvcc, src, out)
+        _compile(src, out)
         return name, time.perf_counter() - t0
 
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
@@ -101,13 +117,14 @@ def build_all() -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<name>.cu`` (built on first use)."""
+    """The shared library built from ``csrc/<name>.cu`` or ``.cpp`` (built on
+    first use)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = os.path.join(build_dir(), f"lib{name}.so")
             if not os.path.exists(path):
-                build_all()
+                build_all([name])
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib

@@ -1,13 +1,12 @@
 """Config dataclasses and loader for the port's detect -> track -> events path.
 
 The port's own copy of ``rtmodt_tpu/config/loader.py`` for the sections the
-port runs: ``system``, ``ingestion``, ``detection``, ``tracking``
-(ByteTrack), ``events``, ``profiling``, ``visualization`` and ``parallel``.
-Defaults are built in Python (``DEFAULTS`` mirrors the reference package's
-``config/default.yaml``).  ``yaml`` is imported only when a YAML path is
-given; the other trackers' blocks and the keys of ``_REFERENCE_ONLY`` are
-skipped with a log line, so the reference package's YAML files load
-unmodified.  Any other unknown key raises, and so does a value the port
+port runs: ``system``, ``ingestion``, ``detection``, ``tracking`` (all four
+trackers and GMC), ``events``, ``profiling``, ``visualization`` and
+``parallel``.  Defaults are built in Python (``DEFAULTS`` mirrors the
+reference package's ``config/default.yaml``).  ``yaml`` is imported only
+when a YAML path is given; the keys of ``_REFERENCE_ONLY`` are skipped with
+a log line, so the reference package's YAML files load unmodified.  Any other unknown key raises, and so does a value the port
 cannot honour (``validate`` names the ROADMAP item that will bring it).
 """
 
@@ -67,17 +66,89 @@ class ByteTrackConfig:
     new_track_thresh: float = 0.5       # birth gate
     max_tracks: int = 256               # static track-slot count
     motion_model: str = "kalman"        # kalman | none
-    assignment: str = "greedy"          # only greedy is ported
+    assignment: str = "greedy"          # greedy (device) | lapjv (host C++ JV solver)
     fuse_score: bool = False            # stage-1 similarity = IoU * det conf
     gate_distance: bool = False         # Mahalanobis chi2inv95(4dof) gate
     match_metric: str = "iou_distance"  # iou | iou_distance (see reference loader)
 
 
 @dataclass
+class DeepSortConfig:
+    """Appearance tracker (tracking/deepsort.py)."""
+
+    max_dist: float = 0.2               # appearance cosine-distance gate
+    min_confidence: float = 0.3
+    max_iou_distance: float = 0.7
+    max_age: int = 70
+    n_init: int = 3
+    nn_budget: int = 100                # realized as an EMA gallery
+    embedder: str = ""                  # "" -> checkpoints/embedder.npz;
+                                        # random | none -> seeded init
+    embed_dim: int = 128
+    crop_hw: list[int] = field(default_factory=lambda: [64, 32])  # ROI h, w
+    max_tracks: int = 256               # static track-slot count
+    ema_alpha: float = 0.9              # appearance EMA momentum
+    gate_distance: bool = True          # Mahalanobis chi2(4dof) gate in stage 1
+
+
+@dataclass
+class BotSortConfig:
+    """BoT-SORT (tracking/botsort.py): ByteTrack's two stages with a fused
+    ``min(IoU distance, gated cosine distance)`` stage-1 cost."""
+
+    track_thresh: float = 0.5           # high/low confidence split
+    low_thresh: float = 0.1             # BYTE stage floor
+    match_thresh: float = 0.8           # stage-1 accept: fused dist <= thresh
+    low_match_thresh: float = 0.5       # stage-2 accept: 1 - IoU <= thresh
+    new_track_thresh: float = 0.6       # birth gate
+    track_buffer: int = 30              # frames a lost track survives
+    proximity_thresh: float = 0.5       # appearance only when 1-IoU <= this
+    appearance_thresh: float = 0.25     # cosine-distance/2 acceptance cut
+    fuse_score: bool = True             # stage-1 IoU similarity *= det conf
+    ema_alpha: float = 0.9              # appearance gallery EMA momentum
+    embedder: str = ""                  # weights chain as deepsort's
+    embed_dim: int = 128
+    crop_hw: list[int] = field(default_factory=lambda: [64, 32])
+    max_tracks: int = 256
+
+
+@dataclass
+class OCSortConfig:
+    """Observation-centric SORT (tracking/ocsort.py)."""
+
+    det_thresh: float = 0.6             # high-confidence association gate
+    low_thresh: float = 0.1             # BYTE stage floor (use_byte)
+    iou_threshold: float = 0.3          # raw-IoU acceptance for every stage
+    max_age: int = 30                   # frames a lost track survives
+    min_hits: int = 3                   # consecutive matches before emit
+    delta_t: int = 3                    # OCM momentum horizon (observations)
+    vdc_weight: float = 0.2             # velocity-direction consistency weight
+    use_byte: bool = False              # BYTE-style low-score second stage
+    max_tracks: int = 256
+
+
+@dataclass
+class GMCConfig:
+    """Camera motion compensation (ops/gmc.py): with ``method: phase`` the
+    scene translation between consecutive frames is estimated by FFT phase
+    correlation of downsampled luma grids and applied to the tracker state
+    before association."""
+
+    method: str = "none"                # none | phase
+    grid: int = 128                     # luma correlation raster (G x G)
+    min_ratio: float = 1.5              # peak/second-peak confidence gate
+    max_shift_frac: float = 0.25        # reject |shift| > grid * frac
+
+
+@dataclass
 class TrackingConfig:
-    algorithm: str = "bytetrack"        # only bytetrack is ported
+    algorithm: str = "bytetrack"        # bytetrack | ocsort | deepsort | botsort
     trail_length: int = 30
+    gmc: GMCConfig = field(default_factory=GMCConfig)
     bytetrack: ByteTrackConfig = field(default_factory=ByteTrackConfig)
+    deepsort: DeepSortConfig = field(default_factory=DeepSortConfig)
+    botsort: BotSortConfig = field(default_factory=BotSortConfig)
+    ocsort: OCSortConfig = field(default_factory=OCSortConfig)
 
 
 @dataclass
@@ -164,12 +235,24 @@ DEFAULTS: dict[str, Any] = {
     },
     "tracking": {
         "algorithm": "bytetrack", "trail_length": 30,
+        "gmc": {"method": "none", "grid": 128, "min_ratio": 1.5, "max_shift_frac": 0.25},
         "bytetrack": {
             "track_thresh": 0.5, "track_buffer": 30, "match_thresh": 0.8,
             "low_thresh": 0.1, "new_track_thresh": 0.5, "max_tracks": 256,
             "motion_model": "kalman", "assignment": "greedy",
             "match_metric": "iou_distance",
         },
+        "deepsort": {"max_dist": 0.2, "min_confidence": 0.3, "max_iou_distance": 0.7,
+                     "max_age": 70, "n_init": 3, "nn_budget": 100, "embedder": "",
+                     "embed_dim": 128, "crop_hw": [64, 32], "max_tracks": 256},
+        "botsort": {"track_thresh": 0.5, "low_thresh": 0.1, "match_thresh": 0.8,
+                    "low_match_thresh": 0.5, "new_track_thresh": 0.6, "track_buffer": 30,
+                    "proximity_thresh": 0.5, "appearance_thresh": 0.25, "fuse_score": True,
+                    "ema_alpha": 0.9, "embedder": "", "embed_dim": 128,
+                    "crop_hw": [64, 32], "max_tracks": 256},
+        "ocsort": {"det_thresh": 0.6, "low_thresh": 0.1, "iou_threshold": 0.3,
+                   "max_age": 30, "min_hits": 3, "delta_t": 3, "vdc_weight": 0.2,
+                   "use_byte": False, "max_tracks": 256},
     },
     "events": {
         "enabled": True,
@@ -198,7 +281,9 @@ _SECTIONS = {"system": SystemConfig, "ingestion": IngestionConfig,
              "detection": DetectionConfig, "tracking": TrackingConfig,
              "events": EventsConfig, "profiling": ProfilingConfig,
              "visualization": VisualizationConfig, "parallel": ParallelConfig}
-_NOT_PORTED_TRACKING = ("gmc", "deepsort", "botsort", "ocsort")
+_SUBSECTIONS = {"bytetrack": ByteTrackConfig, "deepsort": DeepSortConfig,
+                "botsort": BotSortConfig, "ocsort": OCSortConfig, "gmc": GMCConfig,
+                "alert": AlertConfig}
 # Keys of the reference's YAML that mean nothing to the port, with the values
 # it accepts (None: any).  load_config drops them with one log line; any other
 # value raises, since the port would not do what it asks.  topk_impl approx is
@@ -243,10 +328,8 @@ def _build(cls: type, data: Any, path: str) -> Any:
         if name == "zones":
             kwargs[name] = [_build(ZoneConfig, z, f"{path}.zones[{i}]")
                             for i, z in enumerate(value or [])]
-        elif name == "bytetrack":
-            kwargs[name] = _build(ByteTrackConfig, value, f"{path}.bytetrack")
-        elif name == "alert":
-            kwargs[name] = _build(AlertConfig, value, f"{path}.alert")
+        elif name in _SUBSECTIONS:
+            kwargs[name] = _build(_SUBSECTIONS[name], value, f"{path}.{name}")
         else:
             kwargs[name] = value
     return cls(**kwargs)
@@ -293,14 +376,6 @@ def load_config(path: str | None = None,
     if skipped:
         logger.info(f"config: sections {skipped} are not ported; ignored")
     _drop_reference_only(raw)
-    tracking = raw.get("tracking") or {}
-    if (tracking.get("gmc") or {}).get("method", "none") != "none":
-        raise ValueError("tracking.gmc is not ported (ROADMAP item 7); "
-                         "set tracking.gmc.method: none")
-    dropped = [name for name in _NOT_PORTED_TRACKING if tracking.pop(name, None) is not None]
-    if dropped:
-        logger.info(f"config: tracking blocks {dropped} are not ported; ignored")
-    raw["tracking"] = tracking
     cfg = PipelineConfig(**{name: _build(cls, raw.get(name), name)
                             for name, cls in _SECTIONS.items()})
     validate(cfg)
@@ -338,17 +413,49 @@ def validate(cfg: PipelineConfig) -> None:
     if d.nms_impl not in ("fixpoint", "pallas", "auto"):
         raise ValueError(f"detection.nms_impl must be fixpoint|pallas|auto, got {d.nms_impl!r}")
     t = cfg.tracking
-    if t.algorithm != "bytetrack":
-        raise ValueError(f"tracking.algorithm={t.algorithm!r} is not ported (bytetrack only; "
-                         "the others are ROADMAP item 7)")
+    if t.algorithm not in ("bytetrack", "deepsort", "botsort", "ocsort"):
+        raise ValueError(f"tracking.algorithm must be bytetrack|deepsort|botsort|ocsort, "
+                         f"got {t.algorithm!r}")
     bt = t.bytetrack
     if bt.motion_model not in ("kalman", "none"):
         raise ValueError(f"tracking.bytetrack.motion_model must be kalman|none, got {bt.motion_model}")
-    if bt.assignment != "greedy":
-        raise ValueError(f"tracking.bytetrack.assignment={bt.assignment!r} is not ported "
-                         "(greedy only; lapjv is ROADMAP item 4)")
+    if bt.assignment not in ("greedy", "lapjv"):
+        raise ValueError(f"tracking.bytetrack.assignment must be greedy|lapjv, got {bt.assignment!r}")
     if bt.match_metric not in ("iou", "iou_distance"):
         raise ValueError(f"tracking.bytetrack.match_metric must be iou|iou_distance, got {bt.match_metric!r}")
+    g = t.gmc
+    if g.method not in ("none", "phase"):
+        raise ValueError(f"tracking.gmc.method must be none|phase, got {g.method!r}")
+    if g.grid < 32:
+        raise ValueError(f"tracking.gmc.grid must be >= 32, got {g.grid}")
+    if g.min_ratio < 1.0:
+        raise ValueError(f"tracking.gmc.min_ratio must be >= 1.0, got {g.min_ratio}")
+    if g.method == "phase" and bt.assignment == "lapjv" and t.algorithm == "bytetrack":
+        raise ValueError("tracking.gmc runs on the device tracker state and is not supported "
+                         "with the host lapjv backend (assignment: lapjv)")
+    oc = t.ocsort
+    if oc.min_hits < 1:
+        raise ValueError(f"tracking.ocsort.min_hits must be >= 1, got {oc.min_hits}")
+    if oc.delta_t < 1:
+        raise ValueError(f"tracking.ocsort.delta_t must be >= 1, got {oc.delta_t}")
+    if not (0.0 <= oc.iou_threshold < 1.0):
+        raise ValueError(f"tracking.ocsort.iou_threshold must be in [0, 1), got {oc.iou_threshold}")
+    bs = t.botsort
+    if not (0.0 <= bs.proximity_thresh <= 1.0):
+        raise ValueError(f"tracking.botsort.proximity_thresh must be in [0, 1], "
+                         f"got {bs.proximity_thresh}")
+    if not (0.0 < bs.appearance_thresh <= 1.0):
+        raise ValueError(f"tracking.botsort.appearance_thresh must be in (0, 1], "
+                         f"got {bs.appearance_thresh}")
+    if len(bs.crop_hw) != 2 or any(v <= 0 for v in bs.crop_hw):
+        raise ValueError(f"tracking.botsort.crop_hw must be [h, w] > 0, got {bs.crop_hw}")
+    ds = t.deepsort
+    if ds.n_init < 1:
+        raise ValueError(f"tracking.deepsort.n_init must be >= 1, got {ds.n_init}")
+    if not (0.0 < ds.max_dist <= 2.0):
+        raise ValueError(f"tracking.deepsort.max_dist must be in (0, 2], got {ds.max_dist}")
+    if len(ds.crop_hw) != 2 or any(v <= 0 for v in ds.crop_hw):
+        raise ValueError(f"tracking.deepsort.crop_hw must be [h, w] > 0, got {ds.crop_hw}")
     e = cfg.events
     if e.alert.backend not in ("json_file", "webhook"):
         raise ValueError(f"events.alert.backend={e.alert.backend!r} is not ported "

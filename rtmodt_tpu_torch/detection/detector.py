@@ -139,17 +139,25 @@ class Detector:
         return self.model(img[None].permute(0, 3, 1, 2))
 
     @torch.no_grad()
-    def nms(self, raw: tuple[torch.Tensor, torch.Tensor], src_h: int, src_w: int
-            ) -> NMSResult:
-        """Raw heads -> the frame's detections (no batch axis) in source
+    def nms_letterboxed(self, raw: tuple[torch.Tensor, torch.Tensor]) -> NMSResult:
+        """Raw heads -> the frame's detections (no batch axis) in model-input
         coordinates; K1 runs once, at B = 1."""
         d = self.cfg
         res = batched_nms_from_logits(
             raw[0], raw[1], d.input_size, d.conf_threshold, d.iou_threshold,
             d.max_detections, d.nms_candidates, self._class_mask, d.agnostic_nms)
-        res = NMSResult(*(t[0] for t in res))
-        meta = letterbox_meta(src_h, src_w, d.input_size)
+        return NMSResult(*(t[0] for t in res))
+
+    def to_source(self, res: NMSResult, src_h: int, src_w: int) -> NMSResult:
+        """Detections in model-input coordinates -> source coordinates."""
+        meta = letterbox_meta(src_h, src_w, self.cfg.input_size)
         return res._replace(boxes=unletterbox_boxes(res.boxes, meta))
+
+    def nms(self, raw: tuple[torch.Tensor, torch.Tensor], src_h: int, src_w: int
+            ) -> NMSResult:
+        """Raw heads -> the frame's detections (no batch axis) in source
+        coordinates; K1 runs once, at B = 1."""
+        return self.to_source(self.nms_letterboxed(raw), src_h, src_w)
 
     def detect_device(self, frame_bgr_u8: np.ndarray | torch.Tensor) -> NMSResult:
         """Detections as fixed-shape device tensors (``max_detections`` rows)."""

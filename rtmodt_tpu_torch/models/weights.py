@@ -75,3 +75,21 @@ def load_into(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
         if tuple(v.shape) != tuple(own[k].shape):
             raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs {tuple(own[k].shape)}")
     model.load_state_dict(sd, strict=False)
+
+
+def embedder_params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The 14 flat flax arrays of an appearance-embedder checkpoint
+    (``params/<layer>/kernel|bias``) -> the port's ``AppearanceEmbedder``
+    ``state_dict`` (float32): conv kernels HWIO -> OIHW, Dense ``(in, out)``
+    -> Linear ``(out, in)``."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if len(parts) != 3 or parts[0] != "params" or parts[2] not in ("kernel", "bias"):
+            raise KeyError(f"unexpected embedder checkpoint key {key!r}")
+        arr = np.array(value, np.float32)
+        if parts[2] == "kernel":
+            arr = np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4 else arr.T
+        sd[f"{parts[1]}.{'weight' if parts[2] == 'kernel' else 'bias'}"] = \
+            torch.from_numpy(np.ascontiguousarray(arr))
+    return sd

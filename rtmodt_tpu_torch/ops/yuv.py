@@ -91,6 +91,24 @@ def planar_letterbox(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def pad_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, size: int,
+               pad_left: int, pad_top: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Letterbox-pad content planes ``(..., ch, cw)`` / ``(..., ch/2, cw/2)``
+    to the model grid: Y with 114, chroma with 128 (the reference's
+    ``ops/planar_stem.py::pad_planes``; pads are even)."""
+    ch, cw = y.shape[-2:]
+
+    def pad(p: torch.Tensor, n: int, top: int, left: int, value: int) -> torch.Tensor:
+        out = torch.full((*p.shape[:-2], n, n), value, dtype=p.dtype, device=p.device)
+        out[..., top:top + p.shape[-2], left:left + p.shape[-1]] = p
+        return out
+
+    return (pad(y, size, pad_top, pad_left, 114),
+            pad(u, size // 2, pad_top // 2, pad_left // 2, 128),
+            pad(v, size // 2, pad_top // 2, pad_left // 2, 128))
+
+
 def _pack_2x(frames: np.ndarray, out: Planes) -> None:
     """Exact 2x downsample + BT.601 of (N, 2ch, 2cw, 3) BGR into ``out``."""
     y, u, v = out

@@ -4,23 +4,36 @@ Port of ``rtmodt_tpu/runtime/pipeline.py`` (one stream).  Execution modes:
 
   * per-stage (``profiling.per_stage: true``, the reference default):
     ``step`` runs the BGR letterbox, the YOLOv8 forward, NMS (the CUDA
-    kernel K1 at B = 1) and the ByteTrack update as separate stages, each
+    kernel K1 at B = 1) and the tracker update as separate stages, each
     timed by the profiler with a sync of the card; tensors stay on the
-    device between stages, only the visible tracks come back to the host;
+    device between stages, only the visible tracks come back to the host.
+    The tracking stage also runs GMC on the full-resolution BGR frame and,
+    for deepsort / botsort, the ROI crops of that frame and the embedder;
   * packed per-frame (``per_stage: false``): the host packs each frame to
     planar I420 at content size (``ops/yuv.py::pack_chunk``) and the device
-    runs ``planar_letterbox`` -> forward -> NMS -> ByteTrack for it
+    runs ``planar_letterbox`` -> forward -> NMS -> tracker for it
     (``step_packed``, or ``submit_packed_frame`` with a ``pipeline_depth``
-    window in ``run``).  ByteTrack's greedy assignment syncs the host on
+    window in ``run``).  Appearance crops come from the padded Y/U/V planes
+    (``ops/roi.py::crop_yuv_rgb``) and GMC reads ``half_res_luma`` of the
+    content Y plane.  The trackers' greedy assignment syncs the host on
     every round (``ops/assignment.py``), so the window holds back only the
     host's half of each frame (events, render) and overlaps no device work;
-    a sync-free tracker (ROADMAP item 3) would make it real;
+    a sync-free tracker (ROADMAP §1b) would make it real;
   * chunked (``run_chunked``): K frames per chunk, packed to pinned host
-    buffers; the forward and NMS run batched over the chunk, ByteTrack runs
-    once per frame in order, and the host runs
+    buffers; the forward, NMS, crops and embedder run batched over the
+    chunk, GMC and the tracker once per frame in order, and the host runs
     ``ZoneEventEngine.process_chunk`` for every frame.  ``run`` takes this
     path when ``parallel.chunk_size > 1`` and nothing per-frame is asked for
     (no per-stage timing, display, renderer or saved video).
+
+``tracking.bytetrack.assignment: lapjv`` tracks on the host: ``step`` runs
+the detection stages on the device and the host tracker after them, on
+either ``per_stage`` setting, and ``run`` always takes that path (as the
+reference does); ``step_packed`` and ``run_chunked`` refuse it.
+
+The GMC carry (the previous frame's luma grid and a validity flag) lives
+across frames and chunks; ``reset`` and ``warmup`` clear it, so dummy frames
+never shift the first real one.
 
 Frames come from the port's ``RTSPReader``: ids count from 1, file frames
 carry their stream time, live sources keep only the newest frame.
@@ -38,13 +51,15 @@ import numpy as np
 import torch
 
 from rtmodt_tpu_torch.config.loader import PipelineConfig, load_config
-from rtmodt_tpu_torch.detection.detector import Detector, build_detector  # noqa: F401
+from rtmodt_tpu_torch.detection.detector import Detections, Detector, build_detector  # noqa: F401
 from rtmodt_tpu_torch.device import config_device, resolve_device
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
 from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
+from rtmodt_tpu_torch.ops.gmc import gmc_step, half_res_luma, init_carry, luma_grids
 from rtmodt_tpu_torch.ops.letterbox import LetterboxMeta
 from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
-from rtmodt_tpu_torch.ops.yuv import (content_dims, pack_chunk, packed_meta,
+from rtmodt_tpu_torch.ops.roi import crop_yuv_rgb
+from rtmodt_tpu_torch.ops.yuv import (content_dims, pack_chunk, packed_meta, pad_planes,
                                       planar_letterbox, unletterbox_boxes_packed)
 from rtmodt_tpu_torch.profiling.latency_profiler import LatencyProfiler
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
@@ -97,9 +112,15 @@ class Pipeline:
         self.device = resolve_device(device if device is not None
                                      else config_device(self.cfg.system.device))
         self.detector = Detector(self.cfg.detection, self.device, warmup=False, seed=seed)
+        t = self.cfg.tracking
         self.tracker = MultiObjectTracker(
-            self.cfg.tracking.algorithm, trail_length=self.cfg.tracking.trail_length,
-            device=self.device, bytetrack=self.cfg.tracking.bytetrack)
+            t.algorithm, trail_length=t.trail_length, device=self.device,
+            bytetrack=t.bytetrack, deepsort=t.deepsort, botsort=t.botsort, ocsort=t.ocsort,
+            gmc=t.gmc)
+        self._is_appearance = self.tracker.algorithm in ("deepsort", "botsort")
+        self._host_tracker = self.tracker._host is not None
+        self._gmc_on = t.gmc.method == "phase"
+        self._gmc_carry = None
         v = self.cfg.visualization
         self.renderer = FrameRenderer(
             show_boxes=v.show_boxes, show_labels=v.show_labels,
@@ -112,9 +133,10 @@ class Pipeline:
             self.warmup(warmup_shape)
 
     def reset(self) -> None:
-        """Start a new stream: empty track slots, fresh zone-event state, a
-        fresh profiler."""
+        """Start a new stream: empty track slots, no GMC history, fresh
+        zone-event state, a fresh profiler."""
         self.tracker.reset()
+        self._gmc_reset()
         ev = self.cfg.events
         self.events = (ZoneEventEngine.from_config(ev, trail_length=self.cfg.tracking.trail_length)
                        if ev.enabled and ev.zones else None)
@@ -123,12 +145,31 @@ class Pipeline:
                                         log_interval=pc.log_interval)
         self.chunks_submitted = 0
 
+    # -- camera motion compensation -----------------------------------------
+    def _gmc_reset(self) -> None:
+        """A zero grid with valid = 0: the next frame compensates nothing."""
+        self._gmc_carry = (init_carry(self.cfg.tracking.gmc.grid, self.device)
+                           if self._gmc_on else None)
+
+    def _gmc(self, luma_src: torch.Tensor, scale_xy: tuple[float, float]) -> None:
+        """Shift the tracker state by the camera motion between the carried
+        grid and this frame's (a luma plane, a BGR frame or a grid)."""
+        self.tracker.state, self._gmc_carry = gmc_step(
+            self.tracker.state, luma_src, self._gmc_carry, self.cfg.tracking.gmc, scale_xy)
+
+    def _refuse_host_tracker(self, what: str) -> None:
+        if self._host_tracker:
+            raise ValueError(f"tracking.bytetrack.assignment=lapjv tracks on the host per "
+                             f"frame through Pipeline.step (run takes that path); {what} "
+                             "runs a device tracker")
+
     # -- the chunk program -------------------------------------------------
     @torch.no_grad()
     def detect_chunk(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     meta: LetterboxMeta) -> NMSResult:
+                     meta: LetterboxMeta, to_source: bool = True) -> NMSResult:
         """Device planes (K, ch, cw) / (K, ch/2, cw/2) uint8 -> detections of
-        the K frames in source coordinates."""
+        the K frames in source coordinates (model-input coordinates with
+        ``to_source=False``)."""
         d = self.cfg.detection
         img = planar_letterbox(y, u, v, d.input_size, meta.pad_left, meta.pad_top,
                                dtype=self.detector.dtype)
@@ -137,25 +178,59 @@ class Pipeline:
         res = batched_nms_from_logits(
             box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
             d.max_detections, d.nms_candidates, self.detector._class_mask, d.agnostic_nms)
-        return res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
+        if to_source:
+            res = res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
+        return res
 
     @torch.no_grad()
-    def track_chunk(self, res: NMSResult) -> TrackOutputs:
-        """Sequential ByteTrack over the K frames; outputs stacked (K, S, ...)."""
-        outs = [self.tracker.step(res.boxes[i], res.scores[i], res.classes[i], res.valid[i])
-                for i in range(res.boxes.shape[0])]
+    def embed_chunk(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    boxes: torch.Tensor, meta: LetterboxMeta) -> torch.Tensor:
+        """Appearance embeddings (K, D, E) of the K frames' detections:
+        ``boxes`` (K, D, 4) in model-input coordinates, crops from the padded
+        Y/U/V planes (per-crop BT.601), one embedder call for the chunk."""
+        size = self.cfg.detection.input_size
+        yp, up, vp = pad_planes(y, u, v, size, meta.pad_left, meta.pad_top)
+        crop_hw = tuple(self.tracker.cfg.crop_hw)
+        crops = crop_yuv_rgb(yp.float(), up.float(), vp.float(), boxes, crop_hw)
+        k, n = boxes.shape[:2]
+        return self.tracker.embedder(crops.reshape(k * n, *crops.shape[2:])).reshape(k, n, -1)
+
+    @torch.no_grad()
+    def track_chunk(self, res: NMSResult, feats: torch.Tensor | None = None,
+                    grids: torch.Tensor | None = None,
+                    scale_xy: tuple[float, float] = (1.0, 1.0)) -> TrackOutputs:
+        """GMC (with the frames' luma ``grids``) and the tracker over the K
+        frames in order; outputs stacked (K, S, ...)."""
+        outs = []
+        for i in range(res.boxes.shape[0]):
+            if grids is not None:
+                self._gmc(grids[i], scale_xy)
+            outs.append(self.tracker.step(res.boxes[i], res.scores[i], res.classes[i],
+                                          res.valid[i], None if feats is None else feats[i]))
         return TrackOutputs(*(torch.stack(f) for f in zip(*outs)))
 
     def _packed_program(self, planes, src_h: int, src_w: int
                         ) -> tuple[TrackOutputs, NMSResult]:
-        meta = packed_meta(src_h, src_w, self.cfg.detection.input_size)
-        ch, cw = content_dims(src_h, src_w, self.cfg.detection.input_size)
+        self._refuse_host_tracker("the packed path")
+        size = self.cfg.detection.input_size
+        meta = packed_meta(src_h, src_w, size)
+        ch, cw = content_dims(src_h, src_w, size)
         y, u, v = (torch.as_tensor(p).to(self.device, non_blocking=True) for p in planes)
         if tuple(y.shape[1:]) != (ch, cw):
             raise ValueError(f"Y planes are {tuple(y.shape[1:])}, expected {(ch, cw)} "
                              f"for {src_w}x{src_h} input")
-        res = self.detect_chunk(y, u, v, meta)
-        return self.track_chunk(res), res
+        res = self.detect_chunk(y, u, v, meta, to_source=False)
+        feats = (self.embed_chunk(y, u, v, res.boxes, meta) if self._is_appearance
+                 else None)
+        res = res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
+        grids, scale = None, (1.0, 1.0)
+        if self._gmc_on:
+            # the content Y pooled to half resolution first, as the
+            # reference's packed programs do
+            g = self.cfg.tracking.gmc.grid
+            grids = luma_grids(half_res_luma(y), g)
+            scale = (src_w / g, src_h / g)
+        return self.track_chunk(res, feats, grids, scale), res
 
     def submit_packed_yuv(self, planes, src_h: int, src_w: int
                           ) -> tuple[TrackOutputs, NMSResult]:
@@ -170,21 +245,28 @@ class Pipeline:
     def warmup(self, shape_hw: tuple[int, int], iters: int = 3) -> None:
         """Run the stages of the configured per-frame path on a dummy frame
         (cuDNN picks its algorithms, the allocator fills its pools), then
-        reset the tracker: warmup must not leave phantom tracks behind."""
+        reset the tracker and the GMC carry: warmup must not leave phantom
+        tracks behind, nor a dummy grid that would shift the first frame."""
         h, w = shape_hw
         dummy = np.zeros((h, w, 3), np.uint8)
         t0 = time.perf_counter()
         with torch.no_grad():
             for _ in range(iters):
-                if self._per_stage:
-                    res = self.detector.detect_device(dummy)
-                    self.tracker.step(res.boxes, res.scores, res.classes, res.valid)
+                if self._per_stage or self._host_tracker:
+                    fdev = torch.from_numpy(dummy).to(self.device)
+                    res = self.detector.detect_device(fdev)
+                    if not self._host_tracker:
+                        feats = (self.tracker.embed_fn()(fdev, res.boxes)
+                                 if self._is_appearance else None)
+                        self.tracker.step(res.boxes, res.scores, res.classes, res.valid,
+                                          feats)
                 else:
                     planes, _ = pack_chunk(dummy[None], self.cfg.detection.input_size)
                     self._packed_program(planes, h, w)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.tracker.reset()
+        self._gmc_reset()
         logger.info(f"pipeline warmup {w}x{h} done in {time.perf_counter() - t0:.1f}s")
 
     @torch.no_grad()
@@ -197,24 +279,51 @@ class Pipeline:
         p = self.profiler
         det = self.detector
         h, w = frame.shape[:2]
-        if self._per_stage:
+        g = self.cfg.tracking.gmc.grid
+        if self._per_stage or self._host_tracker:
             p.tick("preprocess")
-            img = det.preprocess(torch.from_numpy(frame).to(self.device))
+            fdev = torch.from_numpy(frame).to(self.device)
+            img = det.preprocess(fdev)
             p.tock("preprocess", sync_on=img)
             p.tick("inference")
             raw = det.forward(img)
             p.tock("inference", sync_on=raw)
             p.tick("nms")
             res = det.nms(raw, h, w)
+            if self._host_tracker:
+                res = NMSResult(*(t.cpu() for t in res))
             p.tock("nms", sync_on=res)
             p.tick("tracking")
-            outputs = self.tracker.step(res.boxes, res.scores, res.classes, res.valid)
-            tracks = self.tracker.tracks_from_outputs(outputs, det.class_names)
+            if self._host_tracker:
+                n = int(res.count)
+                tracks = self.tracker.update(Detections(
+                    res.boxes[:n].numpy().astype(np.float32),
+                    res.scores[:n].numpy().astype(np.float32),
+                    res.classes[:n].numpy().astype(np.int32), det.class_names))
+            else:
+                if self._gmc_on:
+                    # GMC on the full-resolution source frame, as the
+                    # reference's per-stage path does
+                    self._gmc(fdev, (w / g, h / g))
+                feats = (self.tracker.embed_fn()(fdev, res.boxes) if self._is_appearance
+                         else None)
+                outputs = self.tracker.step(res.boxes, res.scores, res.classes, res.valid,
+                                            feats)
+                tracks = self.tracker.tracks_from_outputs(outputs, det.class_names)
             p.tock("tracking")
         else:
+            # the reference's fused BGR program: GMC on the source frame,
+            # appearance crops from the letterboxed image
             p.tick("inference")
-            res = det.detect_device(frame)
-            outputs = self.tracker.step(res.boxes, res.scores, res.classes, res.valid)
+            fdev = torch.from_numpy(frame).to(self.device)
+            if self._gmc_on:
+                self._gmc(fdev, (w / g, h / g))
+            img = det.preprocess(fdev)
+            res = det.nms_letterboxed(det.forward(img))
+            feats = (self.tracker.embed_fn(normalized=True)(img, res.boxes)
+                     if self._is_appearance else None)
+            res = det.to_source(res, h, w)
+            outputs = self.tracker.step(res.boxes, res.scores, res.classes, res.valid, feats)
             tracks = self.tracker.tracks_from_outputs(outputs, det.class_names)
             p.tock("inference")
         p.tick("events")
@@ -270,7 +379,8 @@ class Pipeline:
         summary."""
         vcfg = self.cfg.visualization
         if (self.cfg.parallel.chunk_size > 1 and not display and not vcfg.save_video
-                and self.renderer is None and not self._per_stage):
+                and self.renderer is None and not self._per_stage
+                and not self._host_tracker):
             return self.run_chunked(source, max_frames)
         import cv2
 
@@ -278,7 +388,8 @@ class Pipeline:
         writer = None
         zones = self.events.get_zone_polygons() if self.events else []
         names = self.detector.class_names
-        depth = 0 if self._per_stage else max(0, self.cfg.parallel.pipeline_depth)
+        per_frame_step = self._per_stage or self._host_tracker
+        depth = 0 if per_frame_step else max(0, self.cfg.parallel.pipeline_depth)
         inflight: deque = deque()
         frames = 0
         p = self.profiler
@@ -344,7 +455,7 @@ class Pipeline:
                         if len(inflight) > depth and not consume(inflight.popleft()):
                             break
                     else:
-                        tracks, _, _ = (self.step(frame, fid, ts) if self._per_stage
+                        tracks, _, _ = (self.step(frame, fid, ts) if per_frame_step
                                         else self.step_packed(frame, fid, ts))
                         if not finish(frame, tracks):
                             break
@@ -377,10 +488,11 @@ class Pipeline:
         count from 1 and whose stream time is (id - 1) / ``fps``.
         ``max_frames`` of 0 or None means no limit.  Returns the profiler's
         summary with ``frames``, ``chunks``, ``seconds`` and ``fps``."""
+        self._refuse_host_tracker("run_chunked")
         k = max(2, self.cfg.parallel.chunk_size)
         depth = max(0, self.cfg.parallel.pipeline_depth)
         size = self.cfg.detection.input_size
-        s = self.cfg.tracking.bytetrack.max_tracks
+        s = self.tracker.cfg.max_tracks
         pin = self.device.type == "cuda"
         p = self.profiler
         slots: list[_Slot] = []

@@ -1,29 +1,50 @@
 """Public tracker facade: ``MultiObjectTracker`` + ``Track``.
 
-The port's copy of ``rtmodt_tpu/tracking/tracker.py`` for ByteTrack with
-greedy assignment: the same ``update(detections) -> list[Track]`` call (with
-the reference's power-of-two padding of the detections), the same
-conversions of a step's ``TrackOutputs`` into host ``Track`` lists, and the
-same per-id centroid trails capped at ``trail_length`` and pruned of ids
-long gone.  The state lives on the tracker's device.
+The port's copy of ``rtmodt_tpu/tracking/tracker.py``: the same constructor
+dispatch over ``bytetrack`` / ``ocsort`` / ``deepsort`` / ``botsort``, the
+same ``update(detections, frame) -> list[Track]`` call (with the
+reference's power-of-two padding of the detections), the same conversions
+of a step's ``TrackOutputs`` into host ``Track`` lists, and the same per-id
+centroid trails capped at ``trail_length`` and pruned of ids long gone.
 
-Not ported: the other algorithms (deepsort, botsort, ocsort) and GMC
-(ROADMAP item 7), and ``assignment: lapjv`` (ROADMAP item 4).
+  * ``bytetrack`` with ``assignment: greedy``, ``ocsort``, ``deepsort`` and
+    ``botsort`` keep their fixed-slot state on the tracker's device;
+    ``deepsort`` and ``botsort`` embed ROI crops of the frame
+    (``embed_fn``, ``models/embedder.py``);
+  * ``bytetrack`` with ``assignment: lapjv`` is the host NumPy tracker with
+    the optimal C++ solver (``host_bytetrack.py``);
+  * ``tracking.gmc.method: phase`` shifts the device state by the camera
+    motion estimated from consecutive frames before each update.
+
+State save and load is not ported (ROADMAP item 9).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass, field
+from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from rtmodt_tpu_torch.config.loader import ByteTrackConfig
+from rtmodt_tpu_torch.config.loader import (BotSortConfig, ByteTrackConfig, DeepSortConfig,
+                                            GMCConfig, OCSortConfig)
 from rtmodt_tpu_torch.device import resolve_device
-from rtmodt_tpu_torch.tracking.bytetrack import (TrackOutputs, TrackState,
-                                                 bytetrack_update, init_track_state)
+from rtmodt_tpu_torch.tracking.bytetrack import (TrackOutputs, bytetrack_update,
+                                                 init_track_state)
 from rtmodt_tpu_torch.utils.logging import logger
+
+SHIPPED_EMBEDDER = Path(__file__).resolve().parents[2] / "checkpoints" / "embedder.npz"
+
+
+def _as_cfg(cls, value):
+    """A config dataclass from a dataclass or a dict (unknown keys dropped)."""
+    if isinstance(value, cls):
+        return value
+    known = cls.__dataclass_fields__
+    return cls(**{k: v for k, v in (value or {}).items() if k in known})
 
 
 @dataclass
@@ -46,21 +67,14 @@ def _to_host(outputs: TrackOutputs) -> TrackOutputs:
 
 
 class MultiObjectTracker:
-    """ByteTrack (greedy assignment) behind the reference's facade, on
-    ``device`` (default ``"cuda"``)."""
+    """The four trackers behind the reference's facade, their device state
+    on ``device`` (default ``"cuda"``)."""
 
     def __init__(self, algorithm: str = "bytetrack", trail_length: int = 30,
                  device: str | torch.device = "cuda", **kwargs):
         self.algorithm = algorithm.lower()
-        if self.algorithm in ("deepsort", "botsort", "ocsort"):
-            raise NotImplementedError(f"tracking.algorithm={self.algorithm!r} is not "
-                                      "ported (ROADMAP item 7)")
-        if self.algorithm != "bytetrack":
+        if self.algorithm not in ("bytetrack", "deepsort", "botsort", "ocsort"):
             raise ValueError(f"Unknown tracker: {self.algorithm}")
-        gmc = kwargs.get("gmc")
-        if gmc is not None and (gmc.get("method", "none") if isinstance(gmc, dict)
-                                else getattr(gmc, "method", "none")) != "none":
-            raise NotImplementedError("tracking.gmc is not ported (ROADMAP item 7)")
         self.device = resolve_device(device)
 
         self._trail_map: dict[int, list[tuple[int, int]]] = defaultdict(list)
@@ -69,37 +83,169 @@ class MultiObjectTracker:
         # re-match are dropped so 24/7 streams don't accumulate a graveyard
         self._frame_count = 0
         self._trail_seen: dict[int, int] = {}
+        self._host = None
+        self._embed_fns: dict = {}
+        self._setup_gmc(kwargs.get("gmc"))
 
-        bt = kwargs.get("bytetrack", kwargs)
-        if isinstance(bt, ByteTrackConfig):
-            self.cfg = bt
+        if self.algorithm in ("deepsort", "botsort"):
+            from rtmodt_tpu_torch.tracking.botsort import botsort_update
+            from rtmodt_tpu_torch.tracking.deepsort import deepsort_update
+
+            cfg_cls, update_fn = ((DeepSortConfig, deepsort_update)
+                                  if self.algorithm == "deepsort"
+                                  else (BotSortConfig, botsort_update))
+            self.cfg = _as_cfg(cfg_cls, kwargs.get(self.algorithm, kwargs))
+            self.embedder = self._load_embedder()
+            self._update = partial(update_fn, cfg=self.cfg)
+            logger.info(f"Tracker initialised: {self.algorithm} "
+                        f"(embed_dim={self.cfg.embed_dim}) on {self.device}")
+        elif self.algorithm == "ocsort":
+            from rtmodt_tpu_torch.tracking.ocsort import ocsort_update
+
+            self.cfg = _as_cfg(OCSortConfig, kwargs.get("ocsort", kwargs))
+            self._update = partial(ocsort_update, cfg=self.cfg)
+            logger.info(f"Tracker initialised: ocsort (min_hits={self.cfg.min_hits}, "
+                        f"delta_t={self.cfg.delta_t}, use_byte={self.cfg.use_byte}) "
+                        f"on {self.device}")
         else:
-            known = set(ByteTrackConfig.__dataclass_fields__)
-            self.cfg = ByteTrackConfig(**{k: v for k, v in bt.items() if k in known})
-        if self.cfg.assignment == "lapjv":
-            raise NotImplementedError("tracking.bytetrack.assignment=lapjv is not "
-                                      "ported (ROADMAP item 4)")
-        self.state: TrackState = init_track_state(self.cfg.max_tracks, self.device)
-        logger.info(f"Tracker initialised: {self.algorithm} "
-                    f"({self.cfg.assignment}/{self.cfg.motion_model}) on {self.device}")
+            self.cfg = _as_cfg(ByteTrackConfig, kwargs.get("bytetrack", kwargs))
+            if self.cfg.assignment == "lapjv":
+                from rtmodt_tpu_torch.tracking.host_bytetrack import HostByteTrack
+
+                self._host = HostByteTrack(self.cfg)
+            self._update = partial(bytetrack_update, cfg=self.cfg)
+            logger.info(f"Tracker initialised: {self.algorithm} "
+                        f"({self.cfg.assignment}/{self.cfg.motion_model}) on "
+                        f"{'the host' if self._host is not None else self.device}")
+        self.state = self._init_state()
+
+    def _init_state(self):
+        if self._host is not None:
+            return None
+        if self.algorithm in ("deepsort", "botsort"):
+            from rtmodt_tpu_torch.tracking.deepsort import init_deepsort_state
+
+            return init_deepsort_state(self.cfg.max_tracks, self.cfg.embed_dim, self.device)
+        if self.algorithm == "ocsort":
+            from rtmodt_tpu_torch.tracking.ocsort import init_ocsort_state
+
+            return init_ocsort_state(self.cfg.max_tracks, self.cfg.delta_t, self.device)
+        return init_track_state(self.cfg.max_tracks, self.device)
+
+    def _load_embedder(self):
+        """The reference's weights chain: an explicit path loads or raises;
+        ``random`` / ``none`` mean seeded init; otherwise the shipped
+        ``checkpoints/embedder.npz``, with a logged seeded init when it is
+        absent or unusable."""
+        from rtmodt_tpu_torch.models.embedder import init_embedder
+
+        hw, dim = tuple(self.cfg.crop_hw), self.cfg.embed_dim
+        weights = self.cfg.embedder
+        if weights in ("random", "none"):
+            return init_embedder(hw, dim, "", device=self.device)
+        if weights:
+            return init_embedder(hw, dim, weights, device=self.device)
+        if not SHIPPED_EMBEDDER.exists():
+            logger.warning(f"{self.algorithm}: {SHIPPED_EMBEDDER} not found; seeded "
+                           "random embedder init")
+            return init_embedder(hw, dim, "", device=self.device)
+        try:
+            model = init_embedder(hw, dim, str(SHIPPED_EMBEDDER), device=self.device)
+        except (OSError, ValueError, KeyError) as e:
+            logger.warning(f"shipped embedder weights unusable ({e}); seeded random "
+                           "embedder init")
+            return init_embedder(hw, dim, "", device=self.device)
+        logger.info(f"{self.algorithm}: using shipped embedder weights {SHIPPED_EMBEDDER}")
+        return model
+
+    # -- camera motion compensation ------------------------------------------
+    def _setup_gmc(self, gmc) -> None:
+        """``tracking.gmc``: with ``method: phase``, ``update(detections,
+        frame)`` estimates the scene translation against the previous frame
+        (``ops/gmc.py``) and shifts the track state before association."""
+        self.gmc_cfg = gmc if isinstance(gmc, GMCConfig) else _as_cfg(GMCConfig, gmc)
+        self._gmc_prev = None
+        if self.gmc_cfg.method != "none":
+            logger.info(f"Tracker GMC enabled: phase correlation on a "
+                        f"{self.gmc_cfg.grid}x{self.gmc_cfg.grid} luma grid")
+
+    @torch.no_grad()
+    def _gmc_apply(self, frame: np.ndarray) -> None:
+        """Compensate the state for the camera motion since the previous
+        frame (nothing on the first frame or after a reset)."""
+        from rtmodt_tpu_torch.ops.gmc import compensate, luma_grid, phase_shift
+
+        g = self.gmc_cfg
+        cur = luma_grid(torch.as_tensor(frame).to(self.device), g.grid)
+        if self._gmc_prev is not None:
+            h, w = frame.shape[:2]
+            shift, _ = phase_shift(self._gmc_prev, cur, g.min_ratio, g.max_shift_frac)
+            scale = torch.tensor([w / g.grid, h / g.grid], dtype=torch.float32,
+                                 device=self.device)
+            self.state = compensate(self.state, shift * scale)
+        self._gmc_prev = cur
+
+    # -- appearance ------------------------------------------------------------
+    def embed_fn(self, normalized: bool = False):
+        """(image, boxes (D, 4)) -> (D, E) embeddings for deepsort/botsort.
+
+        ``normalized=False``: image is the raw uint8 BGR frame (H, W, 3) on
+        the device, boxes in its coordinates; ``normalized=True``: image is
+        the letterboxed RGB in [0, 1].  The embedder takes RGB in [0, 255]."""
+        if normalized in self._embed_fns:
+            return self._embed_fns[normalized]
+        from rtmodt_tpu_torch.ops.roi import crop_and_resize
+
+        crop_hw = tuple(self.cfg.crop_hw)
+        model = self.embedder
+
+        @torch.no_grad()
+        def fn(image: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+            crops = crop_and_resize(image, boxes, crop_hw)
+            crops = crops * 255.0 if normalized else crops.flip(-1)
+            return model(crops)
+
+        self._embed_fns[normalized] = fn
+        return fn
 
     def reset(self) -> None:
         self._trail_map.clear()
-        self.state = init_track_state(self.cfg.max_tracks, self.device)
+        self._gmc_prev = None
+        if self._host is not None:
+            self._host._tracks.clear()
+            self._host._next_id = 1
+        self.state = self._init_state()
 
     @torch.no_grad()
     def step(self, boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
-             valid: torch.Tensor) -> TrackOutputs:
-        """One ByteTrack step on device detections; returns the device outputs."""
-        self.state, outputs = bytetrack_update(self.state, boxes, scores, classes,
-                                               valid, self.cfg)
+             valid: torch.Tensor, feats: torch.Tensor | None = None) -> TrackOutputs:
+        """One device step on device detections (and, for deepsort/botsort,
+        their (D, E) embeddings); returns the device outputs."""
+        if self._host is not None:
+            raise RuntimeError("assignment: lapjv tracks on the host; call update()")
+        if self.algorithm in ("deepsort", "botsort"):
+            if feats is None:
+                raise ValueError(f"{self.algorithm} needs the detections' embeddings")
+            self.state, outputs = self._update(self.state, boxes, scores, classes, valid,
+                                               feats)
+        else:
+            self.state, outputs = self._update(self.state, boxes, scores, classes, valid)
         return outputs
 
     def update(self, detections, frame: np.ndarray | None = None) -> list[Track]:
-        """Reference-compatible API: Detections in, visible Track list out
-        (``frame`` is accepted for the reference's signature; ByteTrack does
-        not read it)."""
+        """Reference-compatible API: Detections in, visible Track list out.
+        ``frame`` (BGR uint8) is required for ``deepsort`` and ``botsort``
+        (appearance embeddings of ROI crops) and feeds GMC when it is on."""
         names = getattr(detections, "class_names", [])
+        if self._host is not None:
+            raw = self._host.update(detections.xyxy, detections.confidence,
+                                    detections.class_id)
+            self._prune_trails()
+            return [self._to_track(r, names) for r in raw]
+
+        if self.gmc_cfg.method != "none" and frame is not None:
+            self._gmc_apply(frame)
+
         d = len(detections)
         # the reference pads to power-of-two buckets (min 8) so that XLA
         # compiles one program per bucket; the same padding here keeps the
@@ -113,9 +259,14 @@ class MultiObjectTracker:
         conf[:d] = detections.confidence
         cls[:d] = detections.class_id
         valid[:d] = True
-        outputs = self.step(*(torch.from_numpy(a).to(self.device)
-                              for a in (boxes, conf, cls, valid)))
-        return self.tracks_from_outputs(outputs, names)
+        dev = [torch.from_numpy(a).to(self.device) for a in (boxes, conf, cls, valid)]
+        feats = None
+        if self.algorithm in ("deepsort", "botsort"):
+            if frame is None:
+                raise ValueError(f"{self.algorithm} requires the frame for appearance "
+                                 "embeddings: update(detections, frame)")
+            feats = self.embed_fn()(torch.as_tensor(frame).to(self.device), dev[0])
+        return self.tracks_from_outputs(self.step(*dev, feats=feats), names)
 
     def tracks_chunk_from_outputs(self, outputs: TrackOutputs, names: list[str],
                                   with_indices: bool = False):
@@ -164,7 +315,8 @@ class MultiObjectTracker:
         self._frame_count += 1
         if self._frame_count % 512:
             return
-        horizon = max(600, 4 * int(self.cfg.track_buffer))
+        buffer = getattr(self.cfg, "track_buffer", None) or getattr(self.cfg, "max_age", 30)
+        horizon = max(600, 4 * int(buffer))
         dead = [tid for tid, seen in self._trail_seen.items()
                 if self._frame_count - seen > horizon]
         for tid in dead:

@@ -1,9 +1,9 @@
 """Synthetic scenes for tests and smoke runs (no dataset downloads).
 
 The port's copies of the reference package's generators of the same names,
-pixel for pixel: ``moving_boxes_frame`` (numpy only), ``write_synthetic_video``
-and ``dense_moving_scene`` (cv2 draws the shapes and writes the file; it is
-imported inside the functions that need it)."""
+pixel for pixel: ``moving_boxes_frame`` (numpy only), ``write_synthetic_video``,
+``dense_moving_scene`` and ``reid_patch`` (cv2 draws the shapes and writes the
+file; it is imported inside the functions that need it)."""
 
 from __future__ import annotations
 
@@ -166,3 +166,80 @@ def _occlusion_keep(boxes_a: np.ndarray, thresh: float = 0.7) -> np.ndarray:
         if covered / area > thresh:
             keep[i] = False
     return keep
+
+
+def reid_patch(
+    identity: int,
+    view: int,
+    hw: tuple[int, int] = (64, 32),
+    seed: int = 0,
+):
+    """Render one augmented view of a persistent synthetic identity.
+
+    An identity is a (shape, base color, stripe texture) triple; views vary
+    pose (shift/scale/rotation), background, lighting, noise, and partial
+    occlusion - the supervision signal for training the DeepSORT appearance
+    embedder on re-identification (tools/train_embedder.py).  Deterministic
+    in (identity, view, seed).  Returns uint8 BGR (h, w, 3).
+    """
+    import cv2
+
+    h, w = hw
+    id_rng = np.random.default_rng((seed << 24) ^ (identity * 2 + 1))
+    vw_rng = np.random.default_rng((seed << 24) ^ (identity * 2 + 1) ^ (view * 0x9E3779B9 + 7))
+
+    color = id_rng.integers(70, 255, 3)
+    color2 = id_rng.integers(40, 220, 3)
+    shape = int(id_rng.integers(0, 5))
+    n_stripes = int(id_rng.integers(0, 4))
+    stripe_vertical = bool(id_rng.integers(0, 2))
+
+    # view augmentation
+    light = vw_rng.uniform(0.6, 1.3)
+    bgc = vw_rng.integers(10, 90, 3)
+    big = max(h, w) * 2
+    canvas = np.clip(
+        bgc[None, None] + vw_rng.normal(0, 10, (big, big, 3)), 0, 255
+    ).astype(np.uint8)
+    cx = cy = big // 2
+    s = int(min(h, w) * vw_rng.uniform(0.55, 0.95))
+    c1 = tuple(int(np.clip(c * light, 0, 255)) for c in color)
+    c2 = tuple(int(np.clip(c * light, 0, 255)) for c in color2)
+    if shape == 0:
+        cv2.rectangle(canvas, (cx - s, cy - int(s * 1.4)),
+                      (cx + s, cy + int(s * 1.4)), c1, -1)
+    elif shape == 1:
+        cv2.ellipse(canvas, (cx, cy), (s, int(s * 1.4)), 0, 0, 360, c1, -1)
+    elif shape == 2:
+        pts = np.array([[cx, cy - int(s * 1.4)], [cx - s, cy + s],
+                        [cx + s, cy + s]], np.int32)
+        cv2.fillPoly(canvas, [pts], c1)
+    elif shape == 3:
+        cv2.circle(canvas, (cx, cy), s, c1, max(3, s // 3))
+    else:
+        cv2.rectangle(canvas, (cx - s, cy - int(s * 1.4)),
+                      (cx + s, cy + int(s * 1.4)), c1, -1)
+        cv2.circle(canvas, (cx, cy), s // 2, c2, -1)
+    for k in range(n_stripes):      # identity texture
+        off = int((k + 1) * s / (n_stripes + 1))
+        if stripe_vertical:
+            cv2.line(canvas, (cx - s + 2 * off, cy - int(s * 1.4)),
+                     (cx - s + 2 * off, cy + int(s * 1.4)), c2, max(2, s // 8))
+        else:
+            cv2.line(canvas, (cx - s, cy - int(s * 1.4) + 2 * off),
+                     (cx + s, cy - int(s * 1.4) + 2 * off), c2, max(2, s // 8))
+
+    # pose: rotate + shift, then crop the (h, w) window
+    ang = vw_rng.uniform(-25, 25)
+    m = cv2.getRotationMatrix2D((cx, cy), ang, 1.0)
+    canvas = cv2.warpAffine(canvas, m, (big, big))
+    dx, dy = vw_rng.integers(-s // 3, s // 3 + 1, 2)
+    y0 = cy - h // 2 + dy
+    x0 = cx - w // 2 + dx
+    patch = canvas[y0:y0 + h, x0:x0 + w].copy()
+    if vw_rng.random() < 0.3:       # partial occlusion bar
+        oh = int(h * vw_rng.uniform(0.15, 0.4))
+        oy = int(vw_rng.integers(0, h - oh))
+        patch[oy:oy + oh] = vw_rng.integers(0, 255, 3)
+    patch = np.clip(patch + vw_rng.normal(0, 8, patch.shape), 0, 255)
+    return patch.astype(np.uint8)

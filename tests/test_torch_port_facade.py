@@ -127,17 +127,6 @@ def test_tracks_from_outputs_are_identical():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"algorithm": "ocsort"}, "ROADMAP item 7"),
-    ({"algorithm": "deepsort"}, "ROADMAP item 7"),
-    ({"gmc": {"method": "phase"}}, "ROADMAP item 7"),
-    ({"bytetrack": {"assignment": "lapjv"}}, "ROADMAP item 4"),
-])
-def test_unported_trackers_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        MultiObjectTracker(device="cpu", **kwargs)
-
-
 ZONES = [
     {"name": "left", "polygon": [[0, 0], [260, 0], [260, 600], [0, 600]],
      "trigger": "intrusion", "dwell_time_sec": 0.2, "cooldown_sec": 0.4},

@@ -26,6 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(rtmodt_tpu_torch.__path__, "rtmod
 for n in names:
     importlib.import_module(n)
 importlib.import_module("tools.run_pipeline_torch")
+importlib.import_module("tools.compare_trackers_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
 bad = sorted(k for k in sys.modules
@@ -55,7 +56,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.profiling.latency_profiler",
                 "rtmodt_tpu_torch.ops.letterbox", "rtmodt_tpu_torch.detection.detector",
                 "rtmodt_tpu_torch.tracking.tracker", "rtmodt_tpu_torch.visualization.renderer",
-                "rtmodt_tpu_torch.evaluation.mot_eval", "rtmodt_tpu_torch.utils.synthetic"):
+                "rtmodt_tpu_torch.evaluation.mot_eval", "rtmodt_tpu_torch.utils.synthetic",
+                "rtmodt_tpu_torch.ops.gmc", "rtmodt_tpu_torch.ops.roi",
+                "rtmodt_tpu_torch.ops.lapjv", "rtmodt_tpu_torch.models.embedder",
+                "rtmodt_tpu_torch.tracking.ocsort", "rtmodt_tpu_torch.tracking.deepsort",
+                "rtmodt_tpu_torch.tracking.botsort", "rtmodt_tpu_torch.tracking.host_kalman",
+                "rtmodt_tpu_torch.tracking.host_bytetrack"):
         assert mod in out["modules"]
 
 

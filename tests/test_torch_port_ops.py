@@ -170,7 +170,7 @@ def test_config_loads_reference_yaml_and_rejects_unported_settings():
     cfg = load_config(default_config_path(), overrides={"parallel": {"chunk_size": 16}})
     assert cfg.parallel.chunk_size == 16 and cfg.detection.model == "yolov8s"
     with pytest.raises(ValueError):
-        load_config(overrides={"tracking": {"algorithm": "ocsort"}})
+        load_config(overrides={"events": {"alert": {"backend": "mqtt"}}})
     with pytest.raises(ValueError):
         load_config(overrides={"detection": {"quant": "int8"}})
     with pytest.raises(KeyError):
