@@ -44,7 +44,19 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      for bit against its plain version on each of these paths' inputs;
      (e) ``tools/compare_trackers_torch.py``'s four oracle-detection
      scenarios, one row per tracker (every "+ GMC" shake row must reach
-     IDF1 0.99); (f) the dense scene of 6 (d) with deepsort and botsort.
+     IDF1 0.99); (f) the dense scene of 6 (d) with deepsort and botsort;
+  8. several streams: (a) the native frame packer against its numpy plain
+     versions, byte for byte, on a 720p chunk (2x) and a 1080p chunk (3x),
+     with its ms/frame and numpy's on the card's host; (b)
+     ``MultiStreamPipeline.run`` on four 25-fps 720p files of phase-shifted
+     scenes (T = 8, 64 frames a stream, ByteTrack, zone events): the
+     summary, K1 once per chunk (B = 32) and bit-equal to its plain version
+     on a chunk's candidates; (c) each stream of ``submit_chunk_packed``
+     against the single-stream ``submit_packed_yuv`` on its frames, float32
+     with TF32 off (and the bf16 gap); (d) the chunk program's device time
+     per frame slot, its idle share, K1's own time at B = 32 and its bound;
+     (e) deepsort + GMC on two streams (T = 4, four chunks); (f) a degraded
+     run whose short stream must be named in ``dead_streams``.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -91,6 +103,16 @@ COMPARE = {"bounce": 60, "stopgo": 60, "shake": 60, "dense": 60}   # frames per 
 GMC_SHAKE_IDF1 = 0.99  # every "+ GMC" row of the shake scenario (reference 0.997)
 # docs/RESULTS.md, dense seed 5 at 64 objects, full detection
 DENSE_REF = {"deepsort": (0.793, 46), "botsort": (0.807, 58)}
+# phase 8: several streams (bench.py's multi mode: S = 4 streams at T = 8)
+S_STREAMS = 4
+T_MULTI = 8
+N_MULTI = 64           # frames per stream of the counted multi-stream run
+MULTI_DEPTH = 3        # bench.py's pipeline_depth in multi mode
+PACK_FRAMES = 32       # 720p frames of the packer check (1080p: half as many)
+H2, W2 = 1080, 1920    # the 3x geometry of the packer check
+DS_STREAMS, DS_T, DS_CHUNKS = 2, 4, 4   # deepsort + GMC
+INDEP_CHUNKS = 2       # chunks of T_MULTI of the float32 independence check
+INDEP_BOX_TOL = 1e-3   # px, float32 with TF32 off on both sides
 # bf16 vs float32 BGR letterbox: both cast before the resize; bf16 keeps 8
 # bits of mantissa on 0-255 values, so a pixel may move by a few 8-bit levels
 LETTERBOX_BF16_TOL = 0.02
@@ -676,6 +698,304 @@ def tracker_paths(smi: str, frames: np.ndarray) -> dict:
     return out
 
 
+def _write_clip(path: str, n: int, h: int, w: int, t0: int) -> None:
+    """``n`` frames of the moving-boxes scene from time ``t0`` (bench.py's
+    phase-shifted streams) as a 25-fps mp4v file."""
+    import cv2
+
+    from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), LIVE_FPS, (w, h))
+    if not vw.isOpened():
+        fail(f"cannot open a video writer for {path}")
+    for t in range(n):
+        vw.write(moving_boxes_frame(t + t0, h, w, N_OBJECTS)[0])
+    vw.release()
+
+
+def _read_clips(paths: list[str], n: int) -> np.ndarray:
+    """The first ``n`` decoded frames of each file: (n, S, H, W, 3)."""
+    import cv2
+
+    out = []
+    for path in paths:
+        cap = cv2.VideoCapture(path)
+        frames = [cap.read()[1] for _ in range(n)]
+        cap.release()
+        if any(f is None for f in frames):
+            fail(f"cannot read {n} frames of {path}")
+        out.append(np.stack(frames))
+    return np.stack(out, axis=1)
+
+
+def _host_cpu() -> str:
+    model, avx512 = "unknown", False
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name") and model == "unknown":
+                    model = line.split(":", 1)[1].strip()
+                if line.startswith("flags"):
+                    avx512 = "avx512bw" in line.split()
+    except OSError:
+        pass
+    return f"{model}, {os.cpu_count()} cpus, avx512bw {'yes' if avx512 else 'no'}"
+
+
+def multistream_paths(smi: str) -> dict:
+    """Phase 8: the native packer, ``MultiStreamPipeline`` on S streams, the
+    streams' independence in float32, the chunk program's device time,
+    deepsort + GMC and a degraded run.  Returns K1's launches per run and
+    its time and bound at B = T * S."""
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DEFAULTS
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.ops import framepack, nms_kernel
+    from rtmodt_tpu_torch.ops.yuv import content_dims, pack_chunk, packed_meta
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
+    from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    b = T_MULTI * S_STREAMS
+
+    # (a) the packer: native against its plain versions, byte for byte
+    print(f"  (a) native packer on the card's host ({_host_cpu()}; "
+          f"{framepack.default_threads()} threads)", flush=True)
+    rng = np.random.default_rng(8)
+    out["packer"] = {}
+    for label, (h, w, n) in {"720p 2x": (H, W, PACK_FRAMES),
+                             "1080p 3x": (H2, W2, PACK_FRAMES // 2)}.items():
+        frames = np.stack([moving_boxes_frame(t, h, w, N_OBJECTS)[0] for t in range(n)])
+        frames[1::2] = rng.integers(0, 256, frames[1::2].shape, dtype=np.uint8)
+        ch, cw = content_dims(h, w, SIZE)
+        fac = h // ch
+        if not framepack.native_pack_wins(h, w, ch, cw):
+            fail(f"{label}: the native packer does not take this geometry")
+        got = framepack.pack_i420_chunk_native(frames, ch, cw)
+        want = tuple(np.empty_like(p) for p in got)
+        t0 = time.perf_counter()
+        if fac == 2:
+            framepack._pack_2x(frames, want)
+        else:
+            framepack._pack_odd(frames, fac, want)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / n
+        diff = sum(int((a != b_).sum()) for a, b_ in zip(got, want))
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            framepack.pack_i420_chunk_native(frames, ch, cw, out=got)
+            reps.append((time.perf_counter() - t0) * 1e3 / n)
+        t0 = time.perf_counter()
+        pack_chunk(frames, SIZE)
+        dispatch_ms = (time.perf_counter() - t0) * 1e3 / n
+        native_ms = float(np.median(reps))
+        out["packer"][label] = {"native_ms": native_ms, "plain_ms": plain_ms,
+                                "pack_chunk_ms": dispatch_ms, "mismatches": diff}
+        print(f"  packer {label}: {n} frames {w}x{h} -> {cw}x{ch}: mismatches {diff}; native "
+              f"{native_ms:.4f} ms/frame (median of 5), pack_chunk {dispatch_ms:.4f}, numpy "
+              f"plain version {plain_ms:.4f} ms/frame (host clock)", flush=True)
+        if diff:
+            fail(f"native packer differs from its plain version on {label} ({diff} bytes)")
+
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    base = {"system": {"device": DEVICE},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS},
+            "tracking": {"deepsort": {"embedder": EMBEDDER}},
+            "profiling": {"log_interval": 0}, "visualization": {"enabled": False},
+            "parallel": {"num_streams": S_STREAMS, "chunk_size": T_MULTI,
+                         "pipeline_depth": MULTI_DEPTH}}
+    files = [os.path.join(OUT_DIR, f"multi{si}.mp4") for si in range(S_STREAMS)]
+    for si, path in enumerate(files):
+        _write_clip(path, N_MULTI, H, W, 37 * si)
+    short = os.path.join(OUT_DIR, "multi_short.mp4")
+    _write_clip(short, N_MULTI // 2, H, W, 37 * (S_STREAMS - 1))
+
+    def events_by_stream(log: str) -> list[int]:
+        counts = [0] * S_STREAMS
+        if os.path.exists(log):
+            with open(log) as f:
+                for line in f:
+                    counts[json.loads(line)["metadata"]["stream"]] += 1
+        return counts
+
+    # (b) MultiStreamPipeline.run: S files, T = 8, ByteTrack, zone events
+    print(f"  (b) MultiStreamPipeline.run: {S_STREAMS} x {N_MULTI} frames of {W}x{H} at "
+          f"{LIVE_FPS:g} fps, T = {T_MULTI}, depth {MULTI_DEPTH}, ByteTrack", flush=True)
+    log = os.path.join(OUT_DIR, "events_multistream.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    cfg = load_config(overrides=_merge(base, {"events": {
+        "zones": DEFAULTS["events"]["zones"] + [whole], "alert": {"log_path": log}}}))
+    msp = MultiStreamPipeline(cfg)
+    msp.warmup((H, W), T_MULTI)
+    c0 = msp.chunks_submitted
+    nms_kernel.launches = 0
+    t0 = time.perf_counter()
+    summary = msp.run(files)
+    seconds = time.perf_counter() - t0
+    launches, chunks = nms_kernel.launches, msp.chunks_submitted - c0
+    n_chunks = -(-N_MULTI // T_MULTI)
+    out["launches"]["multistream_run"] = {"launches": launches, "chunks": chunks,
+                                          "frames": summary["frames"]}
+    out["run"] = {**summary, "seconds": seconds}
+    print("  " + json.dumps({"path": "multistream_run", "card": smi, **summary,
+                             "chunks": chunks, "seconds": seconds}), flush=True)
+    print(f"  K1 launches {launches} for {chunks} chunks of B = {b} frames", flush=True)
+    if launches != n_chunks or chunks != n_chunks or summary["frames"] != S_STREAMS * N_MULTI:
+        fail(f"multi-stream run: K1 launched {launches} times for {chunks} chunks "
+             f"({summary['frames']} frames)")
+    if summary["per_stream_frames"] != [N_MULTI] * S_STREAMS:
+        fail(f"multi-stream run: per-stream frames {summary['per_stream_frames']}")
+    st = msp.state
+    vis = (st.active & (st.tsu == 0)).sum(dim=1).tolist()
+    births = (st.next_id - 1).tolist()
+    per_events = events_by_stream(log)
+    print(f"  per stream: visible at the end {vis}, ids born {births} for {N_OBJECTS} objects; "
+          f"zone events {per_events}", flush=True)
+    if min(vis) < N_OBJECTS // 2 or max(births) > 3 * N_OBJECTS or min(per_events) == 0:
+        fail(f"multi-stream run: tracks not stable or a stream without events ({vis}, "
+             f"{births}, {per_events})")
+    if not torch.isfinite(st.boxes[st.active]).all():
+        fail("multi-stream run: non-finite track boxes")
+    frames_ts = _read_clips(files, max(T_MULTI, INDEP_CHUNKS * T_MULTI))
+    meta = packed_meta(H, W, SIZE)
+
+    def packed(block: np.ndarray, dev=DEVICE) -> tuple:
+        t, s = block.shape[:2]
+        (y, u, v), _ = pack_chunk(block.reshape(t * s, H, W, 3), SIZE)
+        return tuple(torch.from_numpy(p.reshape(t, s, *p.shape[1:])).to(dev) for p in (y, u, v))
+
+    planes = packed(frames_ts[:T_MULTI])
+    flat = tuple(p.reshape(b, *p.shape[2:]) for p in planes)
+    off, cs, diff = _k1_chunk(msp, flat, meta)
+    out["mismatches"] += diff
+    print(f"  K1 on a multi-stream chunk's candidates (B = {b}): valid "
+          f"{int((cs > 0).sum())}, mismatches {diff}", flush=True)
+    if diff:
+        fail("K1 differs from its plain version on the multi-stream chunk")
+
+    # (d) the chunk program's device time per frame slot, K1 at B = T * S
+    msp.reset()
+    chunk_ms = cuda_time_ms(lambda: msp.submit_chunk_packed(planes, H, W), iters=5)
+    chunk_dev_ms = device_ms(lambda: msp.submit_chunk_packed(planes, H, W), iters=3)
+    iou = cfg.detection.iou_threshold
+    launch = lambda: nms_kernel.greedy_suppress(off, cs, iou)  # noqa: E731
+    plain = lambda: nms_kernel.greedy_suppress_reference(off, cs, iou)  # noqa: E731
+    k1 = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
+          "graph_ms": graph_ms(launch, iters=100), "plain_ms": cuda_time_ms(plain, iters=20),
+          "bound": nms_bound_ms(off, cs), "valid": int((cs > 0).sum())}
+    out["b32"] = k1
+    out["chunk"] = {"chunk_ms": chunk_ms, "chunk_dev_ms": chunk_dev_ms}
+    print(f"  (d) submit_chunk_packed (T = {T_MULTI}, S = {S_STREAMS}): {chunk_ms / b:.4f} ms per "
+          f"frame slot ({chunk_ms:.3f} ms per chunk, CUDA events); device time "
+          + ("not measured" if chunk_dev_ms is None else
+             f"{chunk_dev_ms / b:.4f} ms per frame slot, device idle "
+             f"{100 * (1 - chunk_dev_ms / chunk_ms):.1f} % of the chunk program"), flush=True)
+    print(f"  K1 at B = {b} ({k1['valid']} valid of {b * CANDIDATES}): "
+          + ("not measured" if k1["trace_ms"] is None else f"{k1['trace_ms']:.5f} ms")
+          + f" per launch (profiler trace); CUDA graph {k1['graph_ms']:.5f} ms; plain version "
+          f"{k1['plain_ms']:.4f} ms; bound {k1['bound'][0]:.3e} ms ({k1['bound'][1]})", flush=True)
+
+    # (c) every stream of the batched program against the single-stream one
+    chunks_ts = [frames_ts[c * T_MULTI:(c + 1) * T_MULTI] for c in range(INDEP_CHUNKS)]
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out["independence"] = {}
+    for dtype_name, half in (("float32", False), ("bf16", True)):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        c_cfg = load_config(overrides=_merge(base, {"detection": {"half": half},
+                                                    "events": {"enabled": False}}))
+        multi = MultiStreamPipeline(c_cfg)
+        single = Pipeline(c_cfg)
+        got = [multi.submit_chunk_packed(packed(blk), H, W)[0] for blk in chunks_ts]
+        got = TrackOutputs(*(torch.cat(f).cpu() for f in zip(*got)))
+        vis_diff = id_diff = 0
+        box_gap = 0.0
+        for si in range(S_STREAMS):
+            single.reset()
+            want = [single.submit_packed_yuv(tuple(p[:, si] for p in packed(blk)), H, W)[0]
+                    for blk in chunks_ts]
+            want = TrackOutputs(*(torch.cat(f).cpu() for f in zip(*want)))
+            gv, wv = got.visible[:, si], want.visible
+            vis_diff += int((gv != wv).sum())
+            both = gv & wv
+            id_diff += int((got.track_id[:, si][both] != want.track_id[both]).sum())
+            if both.any():
+                box_gap = max(box_gap, float((got.boxes[:, si][both] - want.boxes[both])
+                                             .abs().max()))
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        out["independence"][dtype_name] = {"visible_diff": vis_diff, "id_diff": id_diff,
+                                           "max_box_gap_px": box_gap}
+        print(f"  (c) {dtype_name}: {S_STREAMS} streams x {INDEP_CHUNKS * T_MULTI} frames, "
+              f"batched (B = {b}) vs single stream (B = {T_MULTI}): visibility mismatches "
+              f"{vis_diff}, id mismatches {id_diff}, max box gap {box_gap:.6f} px"
+              + (" (reported, not held)" if half else f" (tolerance {INDEP_BOX_TOL})"),
+              flush=True)
+        if not half and (vis_diff or id_diff or box_gap > INDEP_BOX_TOL):
+            fail("float32: a stream of the batched program differs from the single stream")
+        del multi, single
+        torch.cuda.empty_cache()
+
+    # (e) deepsort + GMC on two streams
+    n_ds = DS_T * DS_CHUNKS
+    print(f"  (e) MultiStreamPipeline.run, deepsort + GMC: {DS_STREAMS} streams, T = {DS_T}, "
+          f"{DS_CHUNKS} chunks", flush=True)
+    log = os.path.join(OUT_DIR, "events_multistream_deepsort.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    ds_cfg = load_config(overrides=_merge(base, {
+        "tracking": {"algorithm": "deepsort", "gmc": {"method": "phase"}},
+        "parallel": {"num_streams": DS_STREAMS, "chunk_size": DS_T},
+        "events": {"zones": [whole], "alert": {"log_path": log}}}))
+    ds = MultiStreamPipeline(ds_cfg)
+    ds.warmup((H, W), DS_T)
+    nms_kernel.launches = 0
+    ds_summary = ds.run(files[:DS_STREAMS], max_frames=n_ds)
+    launches = nms_kernel.launches
+    out["launches"]["multistream_deepsort_gmc"] = {"launches": launches, "chunks": DS_CHUNKS,
+                                                   "frames": ds_summary["frames"]}
+    print("  " + json.dumps({"path": "multistream_deepsort_gmc", "card": smi, **ds_summary}),
+          flush=True)
+    print(f"  K1 launches {launches} for {DS_CHUNKS} chunks", flush=True)
+    if launches != DS_CHUNKS or ds_summary["frames"] != DS_STREAMS * n_ds:
+        fail(f"deepsort multi-stream: K1 launched {launches} times for {DS_CHUNKS} chunks")
+    for si, st in enumerate(ds.state):
+        if not (torch.isfinite(st.boxes[st.active]).all() and torch.isfinite(st.feat).all()):
+            fail(f"deepsort multi-stream: non-finite state in stream {si}")
+    ds_flat = tuple(p[:DS_T, :DS_STREAMS].reshape(DS_T * DS_STREAMS, *p.shape[2:])
+                    for p in planes)
+    _, ds_cs, diff = _k1_chunk(ds, ds_flat, meta)
+    out["mismatches"] += diff
+    print(f"  K1 on a deepsort chunk's candidates: valid {int((ds_cs > 0).sum())}, "
+          f"mismatches {diff}", flush=True)
+    if diff:
+        fail("K1 differs from its plain version on the deepsort multi-stream chunk")
+    del ds
+    torch.cuda.empty_cache()
+
+    # (f) a degraded run: the last stream's file is half as long
+    print(f"  (f) degraded run: stream {S_STREAMS - 1} has {N_MULTI // 2} frames of {N_MULTI}",
+          flush=True)
+    msp.reset()
+    nms_kernel.launches = 0
+    deg = msp.run(files[:-1] + [short], max_frames=N_MULTI)
+    launches = nms_kernel.launches
+    out["launches"]["multistream_degraded"] = {"launches": launches, "chunks": n_chunks,
+                                               "frames": deg["frames"]}
+    print("  " + json.dumps({"path": "multistream_degraded", "card": smi, **deg}), flush=True)
+    want_frames = [N_MULTI] * (S_STREAMS - 1) + [N_MULTI // 2]
+    if (deg["dead_streams"] != [S_STREAMS - 1] or deg["per_stream_frames"] != want_frames
+            or launches != n_chunks):
+        fail(f"degraded run: dead {deg['dead_streams']}, frames {deg['per_stream_frames']}, "
+             f"K1 launches {launches} for {n_chunks} chunks")
+    del msp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -696,13 +1016,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/7 card")
+    phase("1/8 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/7 build kernels (nvcc -> ctypes)")
+    phase("2/8 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -715,7 +1035,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/7 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/8 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -738,7 +1058,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/7 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/8 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -781,7 +1101,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/7 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/8 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -894,14 +1214,17 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/7 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/8 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/7 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/8 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
+    phase(f"8/8 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+          "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
+    multi = multistream_paths(smi)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
-               **live["launches"], **trackers["launches"]}
+               **live["launches"], **trackers["launches"], **multi["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -913,6 +1236,12 @@ def main() -> int:
         "launches": launches, "launches_by_path": by_path, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,   # no single PyTorch call computes greedy NMS
+        # K1 at the multi-stream chunk's B = T * S (phase 8 (d))
+        f"b{T_MULTI * S_STREAMS}": {"ms": multi["b32"]["trace_ms"],
+                                    "graph_ms": multi["b32"]["graph_ms"],
+                                    "plain_ms": multi["b32"]["plain_ms"],
+                                    "bound_ms": multi["b32"]["bound"][0],
+                                    "bound_by": multi["b32"]["bound"][1]},
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

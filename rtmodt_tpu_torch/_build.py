@@ -1,9 +1,9 @@
 """Build the port's native sources and load them with ctypes.
 
 Every ``*.cu`` file in ``csrc/`` (a CUDA kernel, built with plain ``nvcc``)
-and every ``*.cpp`` file (host code, built with the host C++ compiler)
-becomes its own shared library with a plain C interface (no PyTorch headers,
-so a build takes seconds).  Libraries go to ``build/kernels-<hash of the
+and every ``*.cpp`` file (host code, built with the host C++ compiler; the
+frame packer with ``-march=native``) becomes its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).  Libraries go to ``build/kernels-<hash of the
 sources and flags>/`` under the repository root (listed in ``.gitignore``),
 so an unchanged source is not rebuilt.  A failed build raises with the
 compiler's stderr; nothing falls back.
@@ -32,6 +32,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# Flags of one source only.  The packer's AVX-512 paths compile only where the
+# compiler targets AVX-512BW/VL, so it is built for the host it runs on; its
+# float rounding is written out in the source, so the compiler fuses nothing.
+SOURCE_FLAGS = {"framepack.cpp": ("-march=native", "-ffp-contract=off")}
 BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
@@ -64,6 +68,7 @@ def find_cxx() -> str:
 
 def build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + CXX_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -71,12 +76,16 @@ def build_dir() -> str:
     return os.path.join(BUILD_ROOT, f"kernels-{h.hexdigest()[:16]}")
 
 
-def _compile(src: str, out: str) -> None:
+def compile_source(src: str, out: str, extra: tuple[str, ...] | None = None) -> None:
+    """Compile one source into the shared library ``out``.  ``extra``: flags
+    after the common ones (default: the source's ``SOURCE_FLAGS``)."""
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    if extra is None:
+        extra = SOURCE_FLAGS.get(os.path.basename(src), ())
     if src.endswith(".cu"):
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-o", tmp, src]
     else:
-        cmd = [find_cxx(), *CXX_FLAGS, "-o", tmp, src]
+        cmd = [find_cxx(), *CXX_FLAGS, *extra, "-o", tmp, src]
     tool = os.path.basename(cmd[0])
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -109,7 +118,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
     def one(item):
         name, src, out = item
         t0 = time.perf_counter()
-        _compile(src, out)
+        compile_source(src, out)
         return name, time.perf_counter() - t0
 
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:

@@ -205,8 +205,10 @@ class VisualizationConfig:
 
 @dataclass
 class ParallelConfig:
+    num_streams: int = 1                # > 1: MultiStreamPipeline (one card)
     pipeline_depth: int = 2             # chunks in flight between submit and consume
-    chunk_size: int = 1                 # frames per chunk (run_chunked uses >= 2)
+    chunk_size: int = 1                 # frames per chunk (run_chunked uses >= 2; the
+                                        # multi-stream run uses max(2, chunk_size))
 
 
 @dataclass
@@ -300,7 +302,7 @@ _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
     ("events",): {"device_masks": (False,)},
     ("events", "alert"): {"mqtt_host": None, "mqtt_port": None, "mqtt_topic": None},
     ("parallel",): {"mesh_axes": None, "donate_state": None,
-                    "transport": ("packed", "i420"), "num_streams": (1,)},
+                    "transport": ("packed", "i420")},
 }
 
 
@@ -433,6 +435,12 @@ def validate(cfg: PipelineConfig) -> None:
     if g.method == "phase" and bt.assignment == "lapjv" and t.algorithm == "bytetrack":
         raise ValueError("tracking.gmc runs on the device tracker state and is not supported "
                          "with the host lapjv backend (assignment: lapjv)")
+    if cfg.parallel.num_streams < 1:
+        raise ValueError(f"parallel.num_streams must be >= 1, got {cfg.parallel.num_streams}")
+    if cfg.parallel.num_streams > 1 and bt.assignment == "lapjv" and t.algorithm == "bytetrack":
+        raise ValueError("tracking.bytetrack.assignment=lapjv tracks one stream on the host; "
+                         "several streams (parallel.num_streams > 1) run the device tracker "
+                         "(assignment: greedy)")
     oc = t.ocsort
     if oc.min_hits < 1:
         raise ValueError(f"tracking.ocsort.min_hits must be >= 1, got {oc.min_hits}")

@@ -81,19 +81,21 @@ def _hann2d(n: int, device) -> torch.Tensor:
 
 def phase_shift(prev: torch.Tensor, cur: torch.Tensor, min_ratio: float = 1.5,
                 max_shift_frac: float = 0.25) -> tuple[torch.Tensor, torch.Tensor]:
-    """Translation between two (G, G) luma grids by phase correlation.
+    """Translation between two (G, G) luma grids by phase correlation (or
+    between S streams' (S, G, G) grids, each pair on its own).
 
-    Returns ``(shift_xy (2,) f32, conf () f32)``: the content displacement in
-    grid units (dx, dy), and the ratio of the correlation peak to the highest
-    peak outside its 15x15 circular neighbourhood.  The shift is zeroed when
-    ``conf < min_ratio``, the peak is not positive, or ``|shift|`` exceeds
-    ``G * max_shift_frac``.  Hann window, normalised cross-power spectrum,
-    3-point parabolic sub-pixel fit.  No host sync."""
+    Returns ``(shift_xy (..., 2) f32, conf (...) f32)``: the content
+    displacement in grid units (dx, dy), and the ratio of the correlation
+    peak to the highest peak outside its 15x15 circular neighbourhood.  The
+    shift is zeroed when ``conf < min_ratio``, the peak is not positive, or
+    ``|shift|`` exceeds ``G * max_shift_frac``.  Hann window, normalised
+    cross-power spectrum, 3-point parabolic sub-pixel fit.  No host sync."""
     g = prev.shape[-1]
+    lead = prev.shape[:-2]
     dev = prev.device
     w = _hann2d(g, dev)
-    a = (prev - prev.mean()) * w
-    b = (cur - cur.mean()) * w
+    a = (prev - prev.mean(dim=(-2, -1), keepdim=True)) * w
+    b = (cur - cur.mean(dim=(-2, -1), keepdim=True)) * w
     fa = torch.fft.rfft2(a)
     fb = torch.fft.rfft2(b)
     r = fb * torch.conj(fa)
@@ -102,20 +104,20 @@ def phase_shift(prev: torch.Tensor, cur: torch.Tensor, min_ratio: float = 1.5,
 
     # every index stays on the device: a 0-d tensor used as an index would
     # read it back to the host
-    flat_corr = corr.reshape(-1)
-    flat = torch.argmax(flat_corr)
+    flat_corr = corr.reshape(*lead, g * g)
+    flat = torch.argmax(flat_corr, dim=-1)
     py, px = flat // g, flat % g
-    taps = flat_corr.gather(0, torch.stack([
+    taps = flat_corr.gather(-1, torch.stack([
         flat, ((py - 1) % g) * g + px, ((py + 1) % g) * g + px,
-        py * g + (px - 1) % g, py * g + (px + 1) % g]))
-    peak, up, down, left, right = taps.unbind()
+        py * g + (px - 1) % g, py * g + (px + 1) % g], dim=-1))
+    peak, up, down, left, right = taps.unbind(-1)
 
     excl = 7
     ar = torch.arange(g, device=dev)
-    iy = (ar[:, None] - py + g // 2) % g - g // 2
-    ix = (ar[None, :] - px + g // 2) % g - g // 2
+    iy = (ar[:, None] - py[..., None, None] + g // 2) % g - g // 2
+    ix = (ar[None, :] - px[..., None, None] + g // 2) % g - g // 2
     near = (iy.abs() <= excl) & (ix.abs() <= excl)
-    second = corr.masked_fill(near, -math.inf).max()
+    second = corr.masked_fill(near, -math.inf).amax(dim=(-2, -1))
     conf = peak / second.clamp(min=1e-9)
 
     def _axis(p, left, right):
@@ -131,8 +133,8 @@ def phase_shift(prev: torch.Tensor, cur: torch.Tensor, min_ratio: float = 1.5,
 
     limit = g * max_shift_frac
     ok = (conf >= min_ratio) & (peak > 1e-6) & (dx.abs() <= limit) & (dy.abs() <= limit)
-    shift = torch.stack([dx, dy])
-    return torch.where(ok, shift, torch.zeros_like(shift)), conf
+    shift = torch.stack([dx, dy], dim=-1)
+    return torch.where(ok[..., None], shift, torch.zeros_like(shift)), conf
 
 
 def gmc_step(state, luma_src: torch.Tensor, carry, cfg, scale_xy):
@@ -141,19 +143,30 @@ def gmc_step(state, luma_src: torch.Tensor, carry, cfg, scale_xy):
     carried previous grid, shift the tracker state.  ``carry`` is
     ``(prev_grid (G, G) f32, valid () f32)``; ``valid = 0`` silences the
     first frame after init or reset.  ``scale_xy`` converts grid units to
-    source pixels.  Returns ``(state', (cur_grid, 1.0))``."""
+    source pixels.  Returns ``(state', (cur_grid, 1.0))``.
+
+    Streams: with an S-leading state and carry (``(S, G, G)``, ``(S,)``),
+    ``luma_src`` holds S planes, frames or grids, and every stream is
+    compensated by its own shift."""
     prev, valid = carry
-    cur = luma_grid(luma_src, cfg.grid)
+    src = luma_src.float()
+    if src.ndim == prev.ndim + 1:     # BGR/RGB frames: the channel mean
+        src = src.mean(dim=-1)
+    cur = _resize(src, cfg.grid)
     shift, _ = phase_shift(prev, cur, cfg.min_ratio, cfg.max_shift_frac)
-    sv = shift * valid
-    state = compensate(state, torch.stack([sv[0] * scale_xy[0], sv[1] * scale_xy[1]]))
-    return state, (cur, torch.ones((), dtype=torch.float32, device=cur.device))
+    sv = shift * valid[..., None]
+    state = compensate(state, torch.stack([sv[..., 0] * scale_xy[0], sv[..., 1] * scale_xy[1]],
+                                          dim=-1))
+    return state, (cur, torch.ones_like(valid))
 
 
-def init_carry(grid: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The carry before the first frame: a zero grid, valid = 0."""
-    return (torch.zeros((grid, grid), dtype=torch.float32, device=device),
-            torch.zeros((), dtype=torch.float32, device=device))
+def init_carry(grid: int, device, num_streams: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carry before the first frame: a zero grid, valid = 0 (per stream
+    with ``num_streams``)."""
+    lead = () if num_streams is None else (num_streams,)
+    return (torch.zeros((*lead, grid, grid), dtype=torch.float32, device=device),
+            torch.zeros(lead, dtype=torch.float32, device=device))
 
 
 # Tracker-state fields holding xyxy boxes: shifted by (dx, dy, dx, dy).
@@ -165,15 +178,23 @@ _BOX_FIELDS = frozenset({"boxes", "last_obs", "obs_ring"})
 def compensate(state, shift_xy: torch.Tensor):
     """Bring a fixed-slot tracker state (TrackState, DeepSortState or
     OCSortState) from previous-frame into current-frame coordinates;
-    ``shift_xy`` is the (2,) content displacement in source pixels.
-    Inactive slots shift too (harmless)."""
+    ``shift_xy`` is the (2,) content displacement in source pixels (or (S,
+    2), one per stream of an S-leading state).  Inactive slots shift too
+    (harmless)."""
     shift_xy = shift_xy.float()
-    d4 = torch.cat([shift_xy, shift_xy])
+    lead = shift_xy.shape[:-1]
+    d4 = torch.cat([shift_xy, shift_xy], dim=-1)
+
+    def per_slot(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """(..., k) per stream -> broadcastable over ``x``'s slot axes."""
+        return v.view(*lead, *([1] * (x.ndim - len(lead) - 1)), v.shape[-1])
+
     upd = {}
     for name in state._fields:
         if name in _BOX_FIELDS:
-            upd[name] = getattr(state, name) + d4
+            x = getattr(state, name)
+            upd[name] = x + per_slot(d4, x)
         elif name == "kf_mean":
             km = getattr(state, name)
-            upd[name] = torch.cat([km[..., 0:2] + shift_xy, km[..., 2:]], dim=-1)
+            upd[name] = torch.cat([km[..., 0:2] + per_slot(shift_xy, km), km[..., 2:]], dim=-1)
     return state._replace(**upd)

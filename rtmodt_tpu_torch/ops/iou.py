@@ -17,8 +17,9 @@ def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor
 
 
 def pairwise_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
-    """Pairwise IoU matrix between (M, 4) and (N, 4) xyxy boxes -> (M, N)."""
-    return box_iou(a[:, None, :], b[None, :, :], eps=eps)
+    """Pairwise IoU matrix between (..., M, 4) and (..., N, 4) xyxy boxes ->
+    (..., M, N) (leading axes broadcast: one matrix per stream)."""
+    return box_iou(a[..., :, None, :], b[..., None, :, :], eps=eps)
 
 
 def xyxy_to_cxcyah(xyxy: torch.Tensor) -> torch.Tensor:

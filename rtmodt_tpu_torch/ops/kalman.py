@@ -18,8 +18,8 @@ STD_WEIGHT_VEL = 1.0 / 160.0
 
 
 class KalmanState(NamedTuple):
-    mean: torch.Tensor  # (N, 8)
-    cov: torch.Tensor   # (N, 4, 3) packed (pp, pv, vv) per coordinate
+    mean: torch.Tensor  # (..., N, 8)
+    cov: torch.Tensor   # (..., N, 4, 3) packed (pp, pv, vv) per coordinate
 
     @property
     def pp(self) -> torch.Tensor:
@@ -35,6 +35,7 @@ class KalmanState(NamedTuple):
 
 
 def cov_shape(n: int) -> tuple[int, int, int]:
+    """The packed covariance of ``n`` tracks; a stream axis leads it."""
     return (n, 4, 3)
 
 
@@ -83,8 +84,9 @@ def update(state: KalmanState, measurement: torch.Tensor) -> KalmanState:
 
 
 def gating_distance(state: KalmanState, measurements: torch.Tensor) -> torch.Tensor:
-    """Squared Mahalanobis distance of measurements (..., M, 4) from each
-    predicted state (diagonal innovation covariance)."""
+    """Squared Mahalanobis distance of measurements (..., 1, M, 4) from each
+    of the (..., N) predicted states -> (..., N, M) (diagonal innovation
+    covariance; the leading axes, e.g. streams, broadcast)."""
     r_std = _stds(state.mean[..., 3], STD_WEIGHT_POS, 1e-1)
     s = (state.pp + r_std ** 2).clamp(min=1e-9)
     d = measurements - state.mean[..., None, :4]

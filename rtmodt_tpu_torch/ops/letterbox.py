@@ -41,17 +41,21 @@ def letterbox_meta(src_h: int, src_w: int, size: int) -> LetterboxMeta:
 def letterbox(frame_u8: torch.Tensor, size: int, dtype: torch.dtype = torch.bfloat16
               ) -> tuple[torch.Tensor, LetterboxMeta]:
     """uint8 BGR ``(H, W, 3)`` frame -> normalized RGB ``(size, size, 3)``
-    tensor (channels last, contiguous, padded with 114) + its geometry."""
-    h, w = int(frame_u8.shape[0]), int(frame_u8.shape[1])
+    tensor (channels last, contiguous, padded with 114) + its geometry; or a
+    batch of frames ``(B, H, W, 3)`` -> ``(B, size, size, 3)``."""
+    batched = frame_u8.ndim == 4
+    h, w = int(frame_u8.shape[-3]), int(frame_u8.shape[-2])
     meta = letterbox_meta(h, w, size)
     x = frame_u8.to(dtype).flip(-1)
-    x = F.interpolate(x.permute(2, 0, 1)[None], size=(meta.new_h, meta.new_w),
+    x = x.permute(0, 3, 1, 2) if batched else x.permute(2, 0, 1)[None]
+    x = F.interpolate(x, size=(meta.new_h, meta.new_w),
                       mode="bilinear", align_corners=False, antialias=False)
     pad_bottom = size - meta.new_h - meta.pad_top
     pad_right = size - meta.new_w - meta.pad_left
     x = F.pad(x, (meta.pad_left, pad_right, meta.pad_top, pad_bottom), value=114.0)
     x = x * torch.tensor(1.0 / 255.0, dtype=dtype, device=x.device)
-    return x[0].permute(1, 2, 0).contiguous(), meta
+    x = x.permute(0, 2, 3, 1).contiguous()
+    return (x if batched else x[0]), meta
 
 
 def unletterbox_boxes(boxes_xyxy: torch.Tensor, meta: LetterboxMeta) -> torch.Tensor:

@@ -5,11 +5,10 @@ letterbox content size and converts it to planar Y/U/V (12 bits/px, 7.5x
 fewer bytes than 720p BGR); the device upsamples chroma, converts BT.601 to
 RGB, normalises and pads to the model input in ``planar_letterbox``.
 
-``pack_chunk`` has a numpy path for the exact 2x geometry (720p -> 640x360):
-a 2x2 box average and BT.601 with the fixed-point luma and float chroma of
-the reference's native packer (``rtmodt_tpu/native/framepack.cpp``), so the
-main path needs neither cv2 nor a host C++ build.  Other geometries import
-cv2 and use its bilinear resize and I420 conversion, as the reference does.
+``pack_chunk`` dispatches as the reference does: the port's native packer
+(``ops/framepack.py``, C++ built on first use) on the exact integer
+downsamples where it is fastest (720p -> 640x360 is 2x, 1080p -> 640x360 is
+3x), cv2's bilinear resize and I420 conversion on every other geometry.
 """
 
 from __future__ import annotations
@@ -17,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rtmodt_tpu_torch.ops.framepack import Planes, native_pack_wins, pack_i420_chunk_native
 from rtmodt_tpu_torch.ops.letterbox import LetterboxMeta, letterbox_meta
-
-Planes = tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
 def content_dims(src_h: int, src_w: int, size: int) -> tuple[int, int]:
@@ -109,24 +107,6 @@ def pad_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, size: int,
             pad(v, size // 2, pad_top // 2, pad_left // 2, 128))
 
 
-def _pack_2x(frames: np.ndarray, out: Planes) -> None:
-    """Exact 2x downsample + BT.601 of (N, 2ch, 2cw, 3) BGR into ``out``."""
-    y, u, v = out
-    f = frames.astype(np.uint16)
-    s = f[:, 0::2, 0::2] + f[:, 0::2, 1::2] + f[:, 1::2, 0::2] + f[:, 1::2, 1::2]
-    b, g, r = (s[..., i].astype(np.int32) for i in range(3))
-    # 15-bit fixed-point luma over 4-pixel sums: >> (15 + 2) with rounding
-    y[:] = ((9798 * r + 19235 * g + 3736 * b + (1 << 16)) >> 17).astype(np.uint8)
-    c = s[:, 0::2, 0::2] + s[:, 0::2, 1::2] + s[:, 1::2, 0::2] + s[:, 1::2, 1::2]
-    c = c.astype(np.float32) * np.float32(1.0 / 16.0)
-    b4, g4, r4 = c[..., 0], c[..., 1], c[..., 2]
-    lum4 = (np.float32(0.299) * r4 + np.float32(0.587) * g4
-            + np.float32(0.114) * b4)
-    half = np.float32(128.5)   # +128 offset and +0.5 round-before-truncate
-    u[:] = np.clip((b4 - lum4) * np.float32(1.0 / 1.773) + half, 0, 255).astype(np.uint8)
-    v[:] = np.clip((r4 - lum4) * np.float32(1.0 / 1.403) + half, 0, 255).astype(np.uint8)
-
-
 def _pack_cv2(frames: np.ndarray, out: Planes) -> None:
     import cv2
 
@@ -146,15 +126,27 @@ def pack_chunk(frames_bgr: np.ndarray, size: int,
                out: Planes | None = None) -> tuple[Planes, LetterboxMeta]:
     """Pack a (N, H, W, 3) uint8 BGR chunk into planar I420 content planes
     ``(y (N, ch, cw), u (N, ch/2, cw/2), v)``, written into ``out`` when
-    given.  Returns (planes, packed geometry)."""
+    given (C-contiguous uint8).  Returns (planes, packed geometry).
+
+    Dispatch as the reference's: the native packer where its fast paths
+    apply (``ops/framepack.py::native_pack_wins``: odd integer factors, and
+    2x with a content width that is a multiple of 32), cv2 resize +
+    ``COLOR_BGR2YUV_I420`` everywhere else."""
     n, h, w = frames_bgr.shape[:3]
     ch, cw = content_dims(h, w, size)
+    if native_pack_wins(h, w, ch, cw):
+        return pack_i420_chunk_native(frames_bgr, ch, cw, out=out), packed_meta(h, w, size)
     if out is None:
         out = (np.empty((n, ch, cw), np.uint8),
                np.empty((n, ch // 2, cw // 2), np.uint8),
                np.empty((n, ch // 2, cw // 2), np.uint8))
-    if h == 2 * ch and w == 2 * cw:
-        _pack_2x(frames_bgr, out)
-    else:
-        _pack_cv2(frames_bgr, out)
+    _pack_cv2(frames_bgr, out)
     return out, packed_meta(h, w, size)
+
+
+def pack_i420_planar(frame_bgr: np.ndarray, size: int) -> tuple[Planes, LetterboxMeta]:
+    """One (H, W, 3) BGR frame -> ((y (ch, cw), u (ch/2, cw/2), v), packed
+    geometry), through ``pack_chunk``'s dispatch: what each stream's ingest
+    thread of the multi-stream loop packs."""
+    (y, u, v), meta = pack_chunk(frame_bgr[None], size)
+    return (y[0], u[0], v[0]), meta

@@ -1,0 +1,522 @@
+"""S camera streams on one card (port of ``rtmodt_tpu/parallel/multistream.py``).
+
+The reference runs S streams as one SPMD program, the stream axis sharded
+over a TPU mesh.  The port runs them on one card as one batch: the detector
+forward runs once over all S (or T * S) frames of a call, NMS (the CUDA
+kernel K1) once over those frames, and the tracker T times in order, each
+update over all S streams at once.  Layouts:
+
+  * ``step(frames (S, H, W, 3))``          - one BGR frame per stream;
+  * ``step_chunk(frames (T, S, H, W, 3))`` - T frames per stream, BGR;
+  * ``submit_chunk_packed((y, u, v) (T, S, ...), src_h, src_w)`` - planar
+    I420 chunks, the program ``run`` drives.
+
+Trackers: ByteTrack (greedy assignment) keeps one S-leading state and
+updates every stream in one batched call (``tracking/bytetrack.py``); OC-SORT,
+DeepSORT and BoT-SORT keep one state per stream and run their single-stream
+update on each (their batched forms are ROADMAP work).  With GMC on, each
+stream carries its own previous luma grid and validity flag (``ops/gmc.py``).
+``assignment: lapjv`` (a host tracker of one stream) is refused.
+
+``run`` is the multi-camera loop: one reader + packer thread per stream,
+time-aligned (T, S) chunks with ``pipeline_depth`` chunks in flight, one
+``ZoneEventEngine`` per stream (its events carry ``{"stream": si}``), a
+degraded mode in which a stream that ends or dies is fed blank frames, and an
+optional mosaic of the annotated streams.  Not ported: kill-and-resume
+snapshots and pre-packed x6/x24 chunks (ROADMAP item 9), the MJPEG monitor
+(item 12), several cards.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from rtmodt_tpu_torch.config.loader import PipelineConfig
+from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
+from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
+from rtmodt_tpu_torch.ops.gmc import init_carry
+from rtmodt_tpu_torch.ops.letterbox import letterbox, letterbox_meta, unletterbox_boxes
+from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
+from rtmodt_tpu_torch.ops.roi import crop_and_resize
+from rtmodt_tpu_torch.ops.yuv import content_dims, pack_chunk, pack_i420_planar
+from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs, TrackState, init_track_state
+from rtmodt_tpu_torch.utils.logging import logger
+
+
+def init_multistream_state(num_streams: int, max_tracks: int,
+                           device: str | torch.device = "cpu") -> TrackState:
+    """ByteTrack's state with a leading stream axis: every tensor of
+    ``init_track_state`` repeated ``num_streams`` times (``next_id`` (S,))."""
+    one = init_track_state(max_tracks, device)
+    return TrackState(*(t.expand(num_streams, *t.shape).clone() for t in one))
+
+
+class MosaicAnnotator:
+    """Host-side annotated output of the multi-camera mode: each stream's
+    tracks drawn on its BGR frame (the single-stream ``FrameRenderer``) and
+    the S streams tiled into one mosaic frame for ``--display`` /
+    ``--save-video``.  Track ids are per stream, so are the centroid trails;
+    a dead or short slot gets a black tile.  ``visualization.enabled:
+    false`` still tiles the raw streams, without drawing."""
+
+    def __init__(self, vcfg, names: list[str], num_streams: int):
+        from rtmodt_tpu_torch.visualization.renderer import FrameRenderer
+
+        self.annotate = vcfg.enabled
+        # the per-tile label is the stream's name; the aggregate fps goes on
+        # the mosaic itself
+        self.renderer = FrameRenderer(
+            show_boxes=vcfg.show_boxes, show_labels=vcfg.show_labels,
+            show_trails=vcfg.show_trails, show_zones=vcfg.show_zones, show_hud=False)
+        self.show_hud = vcfg.show_hud and vcfg.enabled
+        self.names = names
+        self.s = num_streams
+        self.cols = int(np.ceil(np.sqrt(num_streams)))
+        self.rows = int(np.ceil(num_streams / self.cols))
+        self.trail_len = vcfg.trail_length
+        self._trails: list[dict[int, list[tuple[int, int]]]] = [{} for _ in range(num_streams)]
+        # ids unseen far past any re-match window are dropped (the facade's
+        # policy), so 24/7 runs keep no graveyard of trails
+        self._frame_count = [0] * num_streams
+        self._trail_seen: list[dict[int, int]] = [{} for _ in range(num_streams)]
+
+    def _prune_trails(self, si: int) -> None:
+        self._frame_count[si] += 1
+        if self._frame_count[si] % 512:
+            return
+        horizon = max(600, 4 * self.trail_len)
+        seen = self._trail_seen[si]
+        for tid in [t for t, last in seen.items() if self._frame_count[si] - last > horizon]:
+            seen.pop(tid, None)
+            self._trails[si].pop(tid, None)
+
+    def tracks_for(self, host: TrackOutputs, t: int, si: int) -> list:
+        """Host TrackOutputs (T, S, N, ...) -> the visible Tracks of frame t
+        of stream si, with their trails."""
+        from rtmodt_tpu_torch.tracking.tracker import Track
+
+        trails = self._trails[si]
+        self._prune_trails(si)
+        out = []
+        for i in np.where(np.asarray(host.visible[t, si]))[0]:
+            tid = int(host.track_id[t, si, i])
+            self._trail_seen[si][tid] = self._frame_count[si]
+            box = np.asarray(host.boxes[t, si, i], np.float32)
+            trail = trails.setdefault(tid, [])
+            trail.append((int((box[0] + box[2]) / 2), int((box[1] + box[3]) / 2)))
+            del trail[:max(0, len(trail) - self.trail_len)]
+            cid = int(host.class_id[t, si, i])
+            name = self.names[cid] if 0 <= cid < len(self.names) else str(cid)
+            out.append(Track(
+                track_id=tid, xyxy=box, confidence=float(host.confidence[t, si, i]),
+                class_id=cid, class_name=name,
+                age=int(host.age[t, si, i]), time_since_update=int(host.tsu[t, si, i]),
+                trail=list(trail)))
+        return out
+
+    def mosaic(self, host: TrackOutputs, t: int, bgr_row: list, zones, fps: float) -> np.ndarray:
+        """Frame t of a chunk: every stream's tile annotated (a black tile
+        for a dead slot, ``None`` in ``bgr_row``), tiled into one (rows * H,
+        cols * W) BGR frame with per-tile stream labels and an aggregate-fps
+        HUD."""
+        import cv2
+
+        shape = next(f.shape for f in bgr_row if f is not None)
+        tiles = []
+        for si in range(self.s):
+            f = bgr_row[si]
+            f = np.zeros(shape, np.uint8) if f is None else f
+            if self.annotate:
+                self.renderer.render(f, self.tracks_for(host, t, si), zones)
+                cv2.putText(f, f"cam{si}", (8, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
+                            (80, 220, 80), 2, cv2.LINE_AA)
+            tiles.append(f)
+        tiles += [np.zeros(shape, np.uint8)] * (self.rows * self.cols - self.s)
+        grid = np.vstack([np.hstack(tiles[r * self.cols:(r + 1) * self.cols])
+                          for r in range(self.rows)])
+        if self.show_hud and fps > 0:
+            cv2.putText(grid, f"{fps:.1f} FPS aggregate", (8, grid.shape[0] - 12),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.7, (255, 255, 255), 2, cv2.LINE_AA)
+        return grid
+
+
+def _split_ts(x: torch.Tensor, t: int, s: int) -> torch.Tensor:
+    return x.reshape(t, s, *x.shape[1:])
+
+
+class MultiStreamPipeline:
+    """S streams as one batch on one device.  ``device`` wins over
+    ``system.device`` (the card by default; ``"cpu"`` runs on the CPU);
+    ``num_streams`` over ``parallel.num_streams``."""
+
+    def __init__(self, cfg: PipelineConfig, num_streams: int | None = None,
+                 device: str | None = None, seed: int = 0):
+        t = cfg.tracking
+        if t.algorithm == "bytetrack" and t.bytetrack.assignment == "lapjv":
+            raise ValueError("tracking.bytetrack.assignment=lapjv tracks one stream on the "
+                             "host; the multi-stream pipeline runs the device tracker "
+                             "(assignment: greedy)")
+        self.cfg = cfg
+        self.num_streams = num_streams or cfg.parallel.num_streams
+        # the single-stream pipeline's detector, tracker facade and chunk
+        # stages; the per-stream state lives here and is handed to it
+        self._pipe = Pipeline(cfg, device=device, seed=seed)
+        self.device = self._pipe.device
+        self.detector = self._pipe.detector
+        self.tracker = self._pipe.tracker
+        self._batched = self.tracker.algorithm == "bytetrack"
+        self._is_appearance = self.tracker.algorithm in ("deepsort", "botsort")
+        self._gmc_on = t.gmc.method == "phase"
+        self.chunks_submitted = 0
+        self.reset()
+        logger.info(f"multi-stream pipeline: {self.num_streams} streams on {self.device} "
+                    f"({self.tracker.algorithm}, "
+                    f"{'batched' if self._batched else 'per-stream'} tracker)")
+
+    def reset(self) -> None:
+        """Fresh tracker state and GMC carry for every stream."""
+        s, dev = self.num_streams, self.device
+        g = self.cfg.tracking.gmc.grid
+        if self._batched:
+            self.state = init_multistream_state(s, self.tracker.cfg.max_tracks, device=dev)
+            self._gmc_carry = init_carry(g, dev, s) if self._gmc_on else None
+        else:
+            self.state = [self.tracker._init_state() for _ in range(s)]
+            self._gmc_carry = [init_carry(g, dev) if self._gmc_on else None for _ in range(s)]
+
+    def warmup(self, shape_hw: tuple[int, int], chunk_size: int = 2) -> None:
+        """One chunk of blank frames through the packed program (cuDNN picks
+        its algorithms for the T * S batch), then ``reset``: no phantom
+        tracks and no dummy GMC grid survive it."""
+        h, w = shape_hw
+        planes, _ = pack_chunk(np.zeros((1, h, w, 3), np.uint8), self.cfg.detection.input_size)
+        t, s = max(1, chunk_size), self.num_streams
+        self.submit_chunk_packed(tuple(np.ascontiguousarray(
+            np.broadcast_to(p[:, None], (t, s, *p.shape[1:]))) for p in planes), h, w)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
+
+    # -- the tracker over T frames of S streams ------------------------------
+    def _track(self, res: NMSResult, feats: torch.Tensor | None, luma, scale_xy
+               ) -> TrackOutputs:
+        """GMC and the tracker over the T frames of (T, S, ...) detections in
+        order: ByteTrack batched over S, the others stream by stream.
+        ``luma``: (T, S, ...) luma sources for GMC (grids or BGR frames)."""
+        pipe = self._pipe
+        if self._batched:
+            pipe.tracker.state, pipe._gmc_carry = self.state, self._gmc_carry
+            outs = pipe.track_chunk(res, feats, luma, scale_xy)
+            self.state, self._gmc_carry = pipe.tracker.state, pipe._gmc_carry
+            return outs
+        per = []
+        for si in range(self.num_streams):
+            pipe.tracker.state, pipe._gmc_carry = self.state[si], self._gmc_carry[si]
+            per.append(pipe.track_chunk(NMSResult(*(x[:, si] for x in res)),
+                                        None if feats is None else feats[:, si],
+                                        None if luma is None else luma[:, si], scale_xy))
+            self.state[si], self._gmc_carry[si] = pipe.tracker.state, pipe._gmc_carry
+        return TrackOutputs(*(torch.stack(f, dim=1) for f in zip(*per)))
+
+    def _check_streams(self, s: int) -> None:
+        if s != self.num_streams:
+            raise ValueError(f"{s} streams in the input for a {self.num_streams}-stream pipeline")
+
+    # -- BGR frames ------------------------------------------------------------
+    @torch.no_grad()
+    def step_chunk(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
+        """frames (T, S, H, W, 3) uint8 BGR -> (outputs, detections) with
+        leading (T, S) axes, detections in source coordinates: the BGR
+        letterbox and the forward over the T * S frames at once, NMS once
+        over them, then per frame GMC on the full-resolution frames and the
+        tracker."""
+        t, s, h, w = frames.shape[:4]
+        self._check_streams(s)
+        d = self.cfg.detection
+        det = self.detector
+        fdev = torch.as_tensor(frames).to(self.device).reshape(t * s, h, w, 3)
+        img, _ = letterbox(fdev, d.input_size, dtype=det.dtype)
+        box_dist, cls_logits = det.model(img.permute(0, 3, 1, 2))
+        res = batched_nms_from_logits(
+            box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
+            d.max_detections, d.nms_candidates, det._class_mask, d.agnostic_nms)
+        feats = None
+        if self._is_appearance:
+            # crops of the letterboxed frames, boxes still in model-input
+            # coordinates (the reference's _frame_body)
+            crops = crop_and_resize(img, res.boxes, tuple(self.tracker.cfg.crop_hw)) * 255.0
+            n = res.boxes.shape[1]
+            feats = _split_ts(self.tracker.embedder(crops.reshape(t * s * n, *crops.shape[2:]))
+                              .reshape(t * s, n, -1), t, s)
+        res = res._replace(boxes=unletterbox_boxes(res.boxes,
+                                                   letterbox_meta(h, w, d.input_size)))
+        res = NMSResult(*(_split_ts(x, t, s) for x in res))
+        g = self.cfg.tracking.gmc.grid
+        luma = _split_ts(fdev, t, s) if self._gmc_on else None
+        outs = self._track(res, feats, luma, (w / g, h / g))
+        return outs, res
+
+    def step(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
+        """frames (S, H, W, 3) uint8 BGR -> (outputs, detections) with a
+        leading S axis."""
+        outs, res = self.step_chunk(frames[None])
+        return TrackOutputs(*(x[0] for x in outs)), NMSResult(*(x[0] for x in res))
+
+    # -- planar I420 chunks ----------------------------------------------------
+    @torch.no_grad()
+    def submit_chunk_packed(self, planes, src_h: int, src_w: int
+                            ) -> tuple[TrackOutputs, NMSResult]:
+        """Run one packed chunk: ``planes`` = (y (T, S, ch, cw), u (T, S,
+        ch/2, cw/2), v) uint8 as numpy arrays or tensors.  The single-stream
+        packed program's stages (``Pipeline.packed_detect``: planar
+        letterbox, forward, K1, crops + embedder, half-res GMC grids) over
+        the T * S frames, then the tracker T times.  Returns the device
+        (TrackOutputs, NMSResult), (T, S) leading."""
+        if isinstance(planes, np.ndarray):
+            raise ValueError("pre-packed x6/x24 chunks are not ported (ROADMAP item 9); "
+                             "submit the (y, u, v) planes")
+        y, u, v = planes
+        t, s = y.shape[:2]
+        self._check_streams(s)
+        flat = tuple(p.reshape(t * s, *p.shape[2:]) for p in (y, u, v))
+        res, feats, grids, scale = self._pipe.packed_detect(flat, src_h, src_w)
+        res = NMSResult(*(_split_ts(x, t, s) for x in res))
+        outs = self._track(res, None if feats is None else _split_ts(feats, t, s),
+                           None if grids is None else _split_ts(grids, t, s), scale)
+        self.chunks_submitted += 1
+        return outs, res
+
+    # -- the multi-camera loop -------------------------------------------------
+    def run(self, sources: list, max_frames: int | None = None,
+            chunk_size: int | None = None, display: bool = False,
+            state_path: str | None = None) -> dict:
+        """Detect, track and raise zone events on S sources (video paths,
+        RTSP URLs or webcam indices; one per stream, sharing one resolution)
+        until every stream has ended, or ``max_frames`` frames per stream
+        (0 or None: no limit).  Chunks of T = ``chunk_size`` (default
+        ``max(2, parallel.chunk_size)``) frames per stream, ``pipeline_depth``
+        chunks in flight.  A stream that ends (file EOF) or dies is fed
+        blank frames from then on, with its frame ids and stream clock
+        continued; it is listed in ``dead_streams``.  Returns a summary:
+        ``frames``, ``streams``, ``fps_aggregate``, ``fps_per_stream``,
+        ``per_stream_frames``, ``dead_streams`` and, with events on,
+        ``zone_counts`` per stream."""
+        if state_path:
+            raise ValueError("multi-stream kill-and-resume snapshots are not ported: "
+                             "ROADMAP item 9")
+        s_streams = self.num_streams
+        if len(sources) != s_streams:
+            raise ValueError(f"{len(sources)} sources for {s_streams} streams")
+        t_chunk = chunk_size or max(2, self.cfg.parallel.chunk_size)
+        depth = max(0, self.cfg.parallel.pipeline_depth)
+        icfg, ecfg, vcfg = self.cfg.ingestion, self.cfg.events, self.cfg.visualization
+        size = self.cfg.detection.input_size
+        names = self.detector.class_names
+        engines = None
+        if ecfg.enabled and ecfg.zones:
+            trail = self.cfg.tracking.trail_length
+            engines = [ZoneEventEngine.from_config(ecfg, trail_length=trail)
+                       for _ in range(s_streams)]
+            for si, eng in enumerate(engines):
+                eng.extra_metadata = {"stream": si}
+        # the annotated mosaic (window and/or video file) is opt-in: the
+        # headless loop keeps no BGR frame on the host
+        render_on = display or vcfg.save_video
+        annot = MosaicAnnotator(vcfg, names, s_streams) if render_on else None
+        render_zones = engines[0].get_zone_polygons() if (render_on and engines) else []
+        writer = None
+
+        qs: list[queue.Queue] = [queue.Queue(maxsize=3 * t_chunk) for _ in range(s_streams)]
+        stop = threading.Event()
+        fps_by_stream = [30.0] * s_streams
+
+        def put(si: int, item) -> None:
+            """Bounded put on stream si's queue that gives up once ``stop``
+            is set."""
+            while not stop.is_set():
+                try:
+                    qs[si].put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+
+        def ingest(si: int) -> None:
+            """Decode and pack one stream; a None sentinel marks its end."""
+            try:
+                with RTSPReader(sources[si], backend=icfg.backend,
+                                reconnect_delay_sec=icfg.reconnect_delay_sec,
+                                max_reconnects=icfg.max_reconnects,
+                                resolution=tuple(icfg.resolution) if icfg.resolution else None
+                                ) as rd:
+                    if rd.fps and rd.fps > 0:
+                        fps_by_stream[si] = float(rd.fps)
+                    last_id = 0
+                    while not stop.is_set():
+                        frame, fid, ts = rd.read_new(last_id, timeout=2.0)
+                        if frame is None:
+                            if rd.is_eof:
+                                break
+                            continue
+                        last_id = fid
+                        planes, _ = pack_i420_planar(frame, size)
+                        put(si, (planes, frame.shape[:2], fid, ts, frame if render_on else None))
+            except Exception as e:   # reported through the sentinel and the log
+                logger.error(f"stream {si} ingest failed: {e}")
+            # the sentinel waits for room like a frame: dropped on a full
+            # queue (as the reference drops it), the consumer would notice the
+            # end only after a 2 s get timeout per stream
+            put(si, None)
+
+        workers = [threading.Thread(target=ingest, args=(si,), daemon=True,
+                                    name=f"rtmodt-ingest-{si}") for si in range(s_streams)]
+        for wk in workers:
+            wk.start()
+
+        inflight: deque = deque()
+        frames_done = n_chunks = 0
+        src_hw = None
+        t_start = None
+
+        def consume(entry) -> bool:
+            """Host half of one chunk: events and the mosaic.  False when the
+            display window asks to quit."""
+            nonlocal frames_done, writer
+            metas, outs, n_real, bgrs = entry
+            host = TrackOutputs(*(x.cpu().numpy() for x in outs))
+            if engines is not None:
+                for si in range(s_streams):
+                    engines[si].process_chunk(
+                        host.track_id[:, si], host.class_id[:, si], host.boxes[:, si],
+                        host.visible[:, si], [m[si][0] for m in metas],
+                        np.asarray([m[si][1] for m in metas], np.float64), class_names=names)
+            frames_done += n_real
+            if annot is None:
+                return True
+            import cv2
+
+            elapsed = (time.perf_counter() - t_start) if t_start else 0.0
+            fps_now = frames_done / elapsed if elapsed > 0 else 0.0
+            for t, row in enumerate(bgrs):
+                if all(f is None for f in row):
+                    continue   # trailing all-blank rows of the last chunk
+                grid = annot.mosaic(host, t, row, render_zones, fps_now)
+                if vcfg.save_video:
+                    if writer is None:
+                        os.makedirs(os.path.dirname(vcfg.save_path) or ".", exist_ok=True)
+                        writer = cv2.VideoWriter(
+                            vcfg.save_path, cv2.VideoWriter_fourcc(*vcfg.codec),
+                            fps_by_stream[0] if fps_by_stream[0] > 0 else 25.0,
+                            (grid.shape[1], grid.shape[0]))
+                    writer.write(grid)
+                if display:
+                    cv2.imshow(vcfg.window_name, grid)
+                    if cv2.waitKey(1) & 0xFF == ord("q"):
+                        return False
+            return True
+
+        dead = [False] * s_streams
+        last_meta = [(0, 0.0)] * s_streams   # per-stream (fid, ts), continued by blanks
+        per_stream_frames = [0] * s_streams
+        try:
+            while True:
+                if max_frames and n_chunks * t_chunk >= max_frames:
+                    break
+                # one time-aligned (T, S) block; a stream whose sentinel
+                # arrives goes dead and contributes blanks from then on
+                block: list[list] = [[] for _ in range(s_streams)]
+                for si in range(s_streams):
+                    while not dead[si] and len(block[si]) < t_chunk:
+                        try:
+                            item = qs[si].get(timeout=2.0)
+                        except queue.Empty:
+                            if workers[si].is_alive():
+                                continue
+                            item = None   # the worker died and its sentinel was dropped
+                        if item is None:
+                            dead[si] = True
+                            logger.info(f"stream {si} ended; continuing degraded (blank frames)")
+                            break
+                        block[si].append(item)
+                n_real = sum(len(b) for b in block)
+                if n_real == 0:   # every stream is done
+                    break
+                if src_hw is None:
+                    src_hw = next(b for b in block if b)[0][1]
+                    ch, cw = content_dims(*src_hw, size)
+                # fresh buffers per block: an in-flight chunk may still be
+                # reading the previous ones
+                y = np.empty((t_chunk, s_streams, ch, cw), np.uint8)
+                u = np.empty((t_chunk, s_streams, ch // 2, cw // 2), np.uint8)
+                v = np.empty((t_chunk, s_streams, ch // 2, cw // 2), np.uint8)
+                metas, bgrs = [], []
+                for t in range(t_chunk):
+                    row, brow = [], []
+                    for si in range(s_streams):
+                        bgr = None
+                        if t < len(block[si]):
+                            planes, hw, fid, ts, bgr = block[si][t]
+                            if hw != src_hw:
+                                raise ValueError(f"stream {si} resolution {hw} != {src_hw}; "
+                                                 "all streams must share one resolution")
+                            y[t, si], u[t, si], v[t, si] = planes
+                            last_meta[si] = (fid, ts)
+                            per_stream_frames[si] += 1
+                        else:   # a dead or short slot: a blank frame on the stream's clock
+                            y[t, si], u[t, si], v[t, si] = 0, 128, 128
+                            last_meta[si] = (last_meta[si][0] + 1,
+                                             last_meta[si][1] + 1.0 / fps_by_stream[si])
+                        row.append(last_meta[si])
+                        brow.append(bgr)
+                    metas.append(row)
+                    bgrs.append(brow)
+                outs, _ = self.submit_chunk_packed((y, u, v), *src_hw)
+                inflight.append((metas, outs, n_real, bgrs))
+                n_chunks += 1
+                if t_start is None:
+                    t_start = time.perf_counter()
+                if len(inflight) > depth and not consume(inflight.popleft()):
+                    inflight.clear()
+                    break
+            while inflight:
+                if not consume(inflight.popleft()):
+                    break
+        finally:
+            stop.set()
+            for q in qs:   # unblock a producer stuck on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+            for wk in workers:
+                wk.join(timeout=5.0)
+            if writer is not None:
+                writer.release()
+                logger.info(f"mosaic video written: {vcfg.save_path}")
+            if display:
+                import cv2
+
+                cv2.destroyAllWindows()
+        wall = (time.perf_counter() - t_start) if t_start else 0.0
+        fps = frames_done / wall if wall > 0 else 0.0
+        summary = {
+            "frames": frames_done,
+            "streams": s_streams,
+            "fps_aggregate": round(fps, 1),
+            "fps_per_stream": round(fps / s_streams, 1),
+            "per_stream_frames": per_stream_frames,
+            "dead_streams": [si for si, d in enumerate(dead) if d],
+        }
+        if engines is not None:
+            summary["zone_counts"] = [eng.zone_counts() for eng in engines]
+        logger.info(f"multi-stream run: {frames_done} frames over {s_streams} streams, "
+                    f"{summary['fps_aggregate']} fps aggregate "
+                    f"({summary['fps_per_stream']}/stream)")
+        return summary

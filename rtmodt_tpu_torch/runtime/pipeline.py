@@ -199,8 +199,10 @@ class Pipeline:
     def track_chunk(self, res: NMSResult, feats: torch.Tensor | None = None,
                     grids: torch.Tensor | None = None,
                     scale_xy: tuple[float, float] = (1.0, 1.0)) -> TrackOutputs:
-        """GMC (with the frames' luma ``grids``) and the tracker over the K
-        frames in order; outputs stacked (K, S, ...)."""
+        """GMC (with the frames' luma ``grids``, or any luma source
+        ``gmc_step`` takes) and the tracker over the K frames in order;
+        outputs stacked (K, S, ...).  The tracker state may carry a stream
+        axis (``parallel/multistream.py``)."""
         outs = []
         for i in range(res.boxes.shape[0]):
             if grids is not None:
@@ -209,9 +211,12 @@ class Pipeline:
                                           res.valid[i], None if feats is None else feats[i]))
         return TrackOutputs(*(torch.stack(f) for f in zip(*outs)))
 
-    def _packed_program(self, planes, src_h: int, src_w: int
-                        ) -> tuple[TrackOutputs, NMSResult]:
-        self._refuse_host_tracker("the packed path")
+    def packed_detect(self, planes, src_h: int, src_w: int):
+        """The per-frame half of the packed program, batched over the K
+        frames of ``planes`` (numpy arrays or tensors): detections in source
+        coordinates, the appearance embeddings (deepsort / botsort) and the
+        GMC luma grids with their grid-to-source scale.  Returns (res, feats
+        or None, grids or None, scale_xy)."""
         size = self.cfg.detection.input_size
         meta = packed_meta(src_h, src_w, size)
         ch, cw = content_dims(src_h, src_w, size)
@@ -230,6 +235,12 @@ class Pipeline:
             g = self.cfg.tracking.gmc.grid
             grids = luma_grids(half_res_luma(y), g)
             scale = (src_w / g, src_h / g)
+        return res, feats, grids, scale
+
+    def _packed_program(self, planes, src_h: int, src_w: int
+                        ) -> tuple[TrackOutputs, NMSResult]:
+        self._refuse_host_tracker("the packed path")
+        res, feats, grids, scale = self.packed_detect(planes, src_h, src_w)
         return self.track_chunk(res, feats, grids, scale), res
 
     def submit_packed_yuv(self, planes, src_h: int, src_w: int

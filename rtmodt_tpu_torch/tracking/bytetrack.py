@@ -12,6 +12,12 @@ fixed number of slots (default 256), all state on the device:
 
 State tensors are replaced, never written in place, so a caller may keep an
 earlier state.
+
+Streams: every state tensor may carry a leading stream axis (S, ...), with
+detections (S, D, ...) beside it (``parallel/multistream.py::
+init_multistream_state``); each stream is
+then updated exactly as a single-stream update on its own inputs, and the
+greedy rounds of all streams share one loop (``ops/assignment.py``).
 """
 
 from __future__ import annotations
@@ -74,28 +80,36 @@ def init_track_state(max_tracks: int = 256,
 def claim_free_slots(active: torch.Tensor, is_new: torch.Tensor,
                      next_id: torch.Tensor):
     """The k-th new det (det order) claims the k-th free slot (slot order);
-    births beyond the free-slot count target the sink index S and are
+    births beyond the free-slot count target the sink index N and are
     dropped.  Returns (target_slot (D,), can_place (D,), new_ids (D,),
-    newly_born (S,))."""
-    s = active.shape[0]
-    ar = torch.arange(s, device=active.device)
-    free_order = torch.argsort(torch.where(~active, ar, s + ar))
-    new_rank = torch.cumsum(is_new.int(), dim=0) - 1
-    num_free = torch.sum(~active)
+    newly_born (N,)), each with the stream axis of ``active`` (..., N)."""
+    n = active.shape[-1]
+    ar = torch.arange(n, device=active.device)
+    free_order = torch.argsort(torch.where(~active, ar, n + ar), dim=-1)
+    new_rank = torch.cumsum(is_new.int(), dim=-1) - 1
+    num_free = torch.sum(~active, dim=-1, keepdim=True)
     can_place = is_new & (new_rank < num_free)
-    target_slot = torch.where(can_place, free_order[new_rank.clamp(0, s - 1)], s)
-    new_ids = next_id + new_rank.int()
-    newly_born = torch.zeros(s + 1, dtype=torch.bool, device=active.device)
-    newly_born[target_slot] = True
-    return target_slot, can_place, new_ids, newly_born[:s]
+    target_slot = torch.where(can_place, free_order.gather(-1, new_rank.clamp(0, n - 1)), n)
+    new_ids = next_id[..., None] + new_rank.int()
+    newly_born = torch.zeros((*active.shape[:-1], n + 1), dtype=torch.bool,
+                             device=active.device).scatter(-1, target_slot, True)
+    return target_slot, can_place, new_ids, newly_born[..., :n]
 
 
 def _scatter_rows(dst: torch.Tensor, slot: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``dst.at[slot].set(src, mode="drop")``: rows aimed at index S (one
-    past the end) are dropped; the targeted in-range slots are distinct."""
-    ext = torch.cat([dst, dst[:1]])
-    ext = ext.index_copy(0, slot, src.to(dst.dtype).expand(slot.shape[0], *dst.shape[1:]))
-    return ext[:-1]
+    """``dst.at[slot].set(src, mode="drop")`` per stream: ``dst`` (..., N,
+    *row), ``slot`` (..., D); rows aimed at index N (one past the end) are
+    dropped; the targeted in-range slots of a stream are distinct."""
+    lead = slot.shape[:-1]
+    a = len(lead)
+    n, row = dst.shape[a], dst.shape[a + 1:]
+    ext = torch.cat([dst, dst.narrow(a, 0, 1)], dim=a)        # (..., N + 1, *row)
+    flat = slot
+    if a:   # offset each stream's slots into the flattened (S * (N + 1)) rows
+        flat = slot + (n + 1) * torch.arange(lead.numel(), device=slot.device).view(*lead, 1)
+    src = src.to(dst.dtype).expand(*slot.shape, *row).reshape(-1, *row)
+    ext = ext.reshape(-1, *row).index_copy(0, flat.reshape(-1), src)
+    return ext.view(*lead, n + 1, *row).narrow(a, 0, n)
 
 
 def _associate_and_update(state: TrackState, pred_boxes: torch.Tensor,
@@ -108,29 +122,29 @@ def _associate_and_update(state: TrackState, pred_boxes: torch.Tensor,
     """One association stage. Returns (state', matched_rows, matched_dets)."""
     if iou is None:
         iou = pairwise_iou(pred_boxes, det_boxes)
-    sim = iou * det_conf[None, :] if fuse_score else iou
+    sim = iou * det_conf[..., None, :] if fuse_score else iou
     if gate_distance and use_kalman:
         dist = kf.gating_distance(kf.KalmanState(state.kf_mean, state.kf_cov),
-                                  xyxy_to_cxcyah(det_boxes)[None])
+                                  xyxy_to_cxcyah(det_boxes)[..., None, :, :])
         sim = torch.where(dist <= _CHI2_95_4DOF, sim, -1.0)
     res = greedy_assign(sim, match_thresh, row_valid=row_eligible, col_valid=det_eligible)
     matched_rows = res.row_to_col >= 0
     det_of_row = res.row_to_col.clamp(min=0).long()
 
-    m_boxes = det_boxes[det_of_row]
-    m_conf = det_conf[det_of_row]
-    m_cls = det_cls[det_of_row]
+    m_boxes = torch.take_along_dim(det_boxes, det_of_row[..., None], dim=-2)
+    m_conf = torch.take_along_dim(det_conf, det_of_row, dim=-1)
+    m_cls = torch.take_along_dim(det_cls, det_of_row, dim=-1)
 
     if use_kalman:
         upd = kf.update(kf.KalmanState(state.kf_mean, state.kf_cov),
                         xyxy_to_cxcyah(m_boxes))
-        new_mean = torch.where(matched_rows[:, None], upd.mean, state.kf_mean)
-        new_cov = torch.where(matched_rows[:, None, None], upd.cov, state.kf_cov)
-        out_boxes = torch.where(matched_rows[:, None], cxcyah_to_xyxy(new_mean[:, :4]),
+        new_mean = torch.where(matched_rows[..., None], upd.mean, state.kf_mean)
+        new_cov = torch.where(matched_rows[..., None, None], upd.cov, state.kf_cov)
+        out_boxes = torch.where(matched_rows[..., None], cxcyah_to_xyxy(new_mean[..., :4]),
                                 state.boxes)
     else:
         new_mean, new_cov = state.kf_mean, state.kf_cov
-        out_boxes = torch.where(matched_rows[:, None], m_boxes, state.boxes)
+        out_boxes = torch.where(matched_rows[..., None], m_boxes, state.boxes)
 
     state = state._replace(
         boxes=out_boxes,
@@ -148,8 +162,9 @@ def bytetrack_update(state: TrackState, det_boxes: torch.Tensor,
                      det_conf: torch.Tensor, det_cls: torch.Tensor,
                      det_valid: torch.Tensor, cfg: ByteTrackConfig
                      ) -> tuple[TrackState, TrackOutputs]:
-    """One tracking step over (D,) detections in source coordinates.
-    Visible tracks are active slots matched this frame (tsu == 0)."""
+    """One tracking step over (D,) detections in source coordinates (or S
+    streams' (S, D) detections against an S-leading state).  Visible tracks
+    are active slots matched this frame (tsu == 0)."""
     use_kalman = cfg.motion_model == "kalman"
     det_boxes = det_boxes.float()
     det_conf = det_conf.float()
@@ -160,10 +175,10 @@ def bytetrack_update(state: TrackState, det_boxes: torch.Tensor,
     # 0. Kalman predict for all active slots
     if use_kalman:
         pred = kf.predict(kf.KalmanState(state.kf_mean, state.kf_cov))
-        kf_mean = torch.where(state.active[:, None], pred.mean, state.kf_mean)
-        kf_cov = torch.where(state.active[:, None, None], pred.cov, state.kf_cov)
+        kf_mean = torch.where(state.active[..., None], pred.mean, state.kf_mean)
+        kf_cov = torch.where(state.active[..., None, None], pred.cov, state.kf_cov)
         state = state._replace(kf_mean=kf_mean, kf_cov=kf_cov)
-        pred_boxes = torch.where(state.active[:, None], cxcyah_to_xyxy(kf_mean[:, :4]),
+        pred_boxes = torch.where(state.active[..., None], cxcyah_to_xyxy(kf_mean[..., :4]),
                                  state.boxes)
     else:
         pred_boxes = state.boxes
@@ -202,7 +217,7 @@ def bytetrack_update(state: TrackState, det_boxes: torch.Tensor,
         confidence=_scatter_rows(state.confidence, target_slot, det_conf),
         age=_scatter_rows(state.age, target_slot, one),
         tsu=_scatter_rows(state.tsu, target_slot, 0 * one),
-        next_id=state.next_id + torch.sum(can_place.int()).int(),
+        next_id=state.next_id + torch.sum(can_place.int(), dim=-1).int(),
     )
 
     # 5. age unmatched tracks, free the dead

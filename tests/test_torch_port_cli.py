@@ -100,7 +100,7 @@ def test_cli_prints_the_final_profile_and_zone_counts(runs):
     (["--mjpeg-port", "0"], "ROADMAP item 12"),
     (["--resume-state", "state.npz"], "ROADMAP item 9"),
     (["--state-interval", "10"], "ROADMAP item 9"),
-    (["-s", "a.mp4", "-s", "b.mp4"], "ROADMAP item 8"),
+    (["-s", "a.mp4", "-s", "b.mp4", "--resume-state", "state.npz"], "ROADMAP item 9"),
 ])
 def test_cli_refuses_what_is_not_ported(args, item):
     from tools.run_pipeline_torch import main

@@ -65,6 +65,25 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert mod in out["modules"]
 
 
+def test_multistream_and_packer_import_no_jax_cv2_or_yaml():
+    probe = ("import json, sys\n"
+             "import rtmodt_tpu_torch.parallel.multistream, rtmodt_tpu_torch.ops.framepack\n"
+             "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'rtmodt_tpu', 'cv2', 'yaml'))))\n")
+    proc = _run(["-c", probe], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_multistream_pipeline_raises_without_cuda(monkeypatch):
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiStreamPipeline(load_config(overrides={"parallel": {"num_streams": 2}}))
+
+
 def test_cuda_entry_points_raise_without_cuda(monkeypatch):
     from rtmodt_tpu_torch.device import resolve_device
     from rtmodt_tpu_torch.runtime.pipeline import Pipeline

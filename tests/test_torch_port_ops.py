@@ -182,7 +182,7 @@ def test_config_loads_reference_yaml_and_rejects_unported_settings():
     ("detection", "quant", "none", "int8"),
     ("events", "device_masks", False, True),
     ("parallel", "transport", "i420", "bgr"),
-    ("parallel", "num_streams", 1, 4),
+    ("parallel", "transport", "packed", "x6"),
 ])
 def test_config_drops_reference_only_keys_and_refuses_unported_values(
         section, key, accepted, refused):

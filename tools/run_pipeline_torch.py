@@ -6,11 +6,15 @@ The port's counterpart of ``tools/run_pipeline.py``, with the same flags:
 ``--max-frames`` and ``--save-video``.  It runs ``rtmodt_tpu_torch``'s
 ``Pipeline.run`` on the device that ``system.device`` names (``cpu``, or
 ``cuda``/``tpu`` for the card) and prints the final profile and the zone
-counts.  Not ported, and refused with a non-zero exit: ``--mjpeg-port``
-(ROADMAP item 12), ``--resume-state``/``--state-interval`` (item 9) and more
-than one ``-s`` (multi-stream, item 8).
+counts.  Several ``-s`` set ``parallel.num_streams`` and run
+``MultiStreamPipeline.run`` over the sources (one card; ``--display`` and
+``--save-video`` tile the annotated streams into one mosaic), which prints
+the multi-camera summary.  Not ported, and refused with a non-zero exit:
+``--mjpeg-port`` (ROADMAP item 12) and ``--resume-state``/``--state-interval``
+(item 9).
 
     python tools/run_pipeline_torch.py -c cfg.yaml -s video.mp4 --max-frames 100
+    python tools/run_pipeline_torch.py -c cfg.yaml -s cam0.mp4 -s cam1.mp4
 """
 
 from __future__ import annotations
@@ -55,13 +59,12 @@ def main(argv: list[str] | None = None) -> int:
     for key, msg in _NOT_PORTED.items():
         if getattr(args, key) is not None:
             raise SystemExit(f"run_pipeline_torch: {msg}")
-    if len(args.source) > 1:
-        raise SystemExit("run_pipeline_torch: more than one -s (multi-stream) is not "
-                         "ported: ROADMAP item 8")
 
     overrides: dict = {}
-    if args.source:
+    if len(args.source) == 1:
         overrides["ingestion"] = {"source": args.source[0]}
+    if len(args.source) > 1:
+        overrides["parallel"] = {"num_streams": len(args.source)}
     if args.save_video:
         overrides["visualization"] = {"save_video": True}
     cfg = load_config(args.config_path, overrides)
@@ -75,19 +78,25 @@ def main(argv: list[str] | None = None) -> int:
     log_file.setFormatter(logging.Formatter("%(asctime)s | %(levelname)-8s | %(message)s"))
     logger.addHandler(log_file)
 
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
     from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 
     try:
-        pipe = Pipeline(cfg)
+        pipe = MultiStreamPipeline(cfg) if len(args.source) > 1 else Pipeline(cfg)
     except RuntimeError as e:     # asked for the card where there is none
         raise SystemExit(f"run_pipeline_torch: {e}")
-    summary = pipe.run(display=args.display, max_frames=args.max_frames)
-    if pipe.events is not None and summary is not None:
-        summary = dict(summary)
-        summary["zone_counts"] = pipe.events.zone_counts()
+    if len(args.source) > 1:
+        summary = pipe.run(list(args.source), max_frames=args.max_frames, display=args.display)
+    else:
+        summary = pipe.run(display=args.display, max_frames=args.max_frames)
+        if pipe.events is not None and summary is not None:
+            summary = dict(summary)
+            summary["zone_counts"] = pipe.events.zone_counts()
     if summary:
         print("\n=== final profile ===")
         for k, v in sorted(summary.items()):
+            # the multi-camera summary has non-scalar fields too
+            # (per_stream_frames, dead_streams, zone_counts per stream)
             print(f"  {k}: {v:.2f}" if isinstance(v, float) else f"  {k}: {v}")
     return 0
 
