@@ -56,7 +56,21 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      with TF32 off (and the bf16 gap); (d) the chunk program's device time
      per frame slot, its idle share, K1's own time at B = 32 and its bound;
      (e) deepsort + GMC on two streams (T = 4, four chunks); (f) a degraded
-     run whose short stream must be named in ``dead_streams``.
+     run whose short stream must be named in ``dead_streams``;
+  9. serving: (a) the port's web app (``serving/server.py``) on a real
+     socket with rich640d injected through ``_singleton.set``: health,
+     samples, the sample gallery, an upload, 16-frame webcam sessions
+     (ByteTrack with a zone, deepsort), ``/api/track/video`` (ByteTrack and
+     botsort, zones), ``/api/stream/demo`` and ``/api/stream/video``, with
+     K1 once per served frame; (b) the default detector build
+     (``RTMODT_WEIGHTS`` unset) on the card; (c) K1 bit for bit on a served
+     frame's candidates, and its time; (d) 8 client threads x 8 uploads
+     against the sequential responses; (e) request times (host clock); (f)
+     the MJPEG monitor behind ``Pipeline.run``, ``MultiStreamPipeline.run``
+     (the mosaic) and the CLI's ``--mjpeg-port``, read by a viewer thread;
+     (g) ``tools/run_inference_torch.py`` ``detect --evaluate`` (mAP) and
+     ``track --gt-mot`` on the dense scene of 6 (d), without and with
+     ``--interpolate 20``.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -65,6 +79,7 @@ library and ``rtmodt_tpu_torch`` only.
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import subprocess
@@ -120,6 +135,17 @@ LETTERBOX_BF16_TOL = 0.02
 # compounds through ~70 layers; a mapping or layout fault is O(1) of the
 # logit range, an arithmetic-precision gap a few percent of it.
 MODEL_REL_TOL = 0.05
+# phase 9: serving
+SERVE_FRAMES = 16      # /api/detect/frame requests of each webcam session
+SERVE_CLIP = 48        # frames of the 25-fps 720p clip (track/video, the monitor, the CLI)
+STREAM_SECONDS, STREAM_FPS = 2.0, 30.0   # /api/stream/demo: 60 parts
+STREAM_VIDEO_FRAMES = 24
+CONC_THREADS, CONC_REQUESTS = 8, 8
+# concurrent vs sequential /api/detect/image boxes: every request runs the
+# same kernels on the same stream, so they should agree bit for bit
+CONC_BOX_TOL = 1e-3    # px
+MONITOR_PARTS = 3      # distinct /stream parts a viewer must receive
+RI_IMAGES, RI_OBJECTS = 8, 16   # run_inference_torch detect: frames, objects a frame
 
 
 def phase(msg: str) -> None:
@@ -153,8 +179,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int, name: str | None = None) -> float | None:
     """Device time per call of fn(), from torch.profiler's CUDA trace: the
-    self device time of every kernel and copy it ran (only those whose name
-    holds ``name``, when given), summed.  None when the trace holds none."""
+    self device time of every kernel and copy it ran, summed, over ``iters``
+    calls.  With ``name``, fn() launches one kernel whose name holds it, and
+    the time is that kernel's mean over the launches the trace holds (a trace
+    that lost some would otherwise read low); a count other than ``iters`` is
+    printed.  None when the trace holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -163,12 +192,20 @@ def device_ms(fn, iters: int, name: str | None = None) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, count = 0.0, 0
     for evt in prof.key_averages():
         if name is None or name in evt.key:
             total_us += getattr(evt, "self_device_time_total",
                                 getattr(evt, "self_cuda_time_total", 0.0))
-    return total_us / iters / 1e3 if total_us > 0 else None
+            count += evt.count
+    if total_us <= 0:
+        return None
+    if name is None:
+        return total_us / iters / 1e3
+    if count != iters:
+        print(f"  profiler trace holds {count} launches of {name} for {iters} calls",
+              flush=True)
+    return total_us / count / 1e3
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -203,6 +240,23 @@ def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str) -> dict:
+    """K1's time on these candidates (profiler trace and CUDA graph, per
+    launch), its plain version's and its bound, printed under ``label``."""
+    from rtmodt_tpu_torch.ops import nms_kernel
+
+    launch = lambda: nms_kernel.greedy_suppress(boxes, scores, iou)  # noqa: E731
+    plain = lambda: nms_kernel.greedy_suppress_reference(boxes, scores, iou)  # noqa: E731
+    t = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
+         "graph_ms": graph_ms(launch, iters=100), "plain_ms": cuda_time_ms(plain, iters=20),
+         "bound": nms_bound_ms(boxes, scores), "valid": int((scores > 0).sum())}
+    print(f"  K1 at {label}, {t['valid']} valid of {scores.numel()}: "
+          + ("not measured" if t["trace_ms"] is None else f"{t['trace_ms']:.5f} ms")
+          + f" per launch (profiler trace); CUDA graph {t['graph_ms']:.5f} ms; plain version "
+          f"{t['plain_ms']:.4f} ms; bound {t['bound'][0]:.3e} ms ({t['bound'][1]})", flush=True)
+    return t
+
+
 def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
     xy = torch.rand(b, k, 2, generator=gen) * 560
     wh = torch.rand(b, k, 2, generator=gen) * 152 + 8
@@ -235,8 +289,9 @@ def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
 
 def _k1_at_b1(det, frame: np.ndarray, packed: bool) -> tuple:
     """K1's inputs at B = 1 from one real frame through the per-stage
-    (BGR letterbox) or the packed (planar I420) front, and its keep mask
-    against the plain version's.  Returns (boxes, scores, mismatches)."""
+    (BGR letterbox) or the packed (planar I420) front, with the detector's
+    own ``nms_candidates`` rows, and its keep mask against the plain
+    version's.  Returns (boxes, scores, mismatches)."""
     from rtmodt_tpu_torch.ops import nms_kernel
     from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
     from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
@@ -250,8 +305,8 @@ def _k1_at_b1(det, frame: np.ndarray, packed: bool) -> tuple:
         else:
             img = det.preprocess(torch.from_numpy(frame).to(det.device))
         bd, cl = det.forward(img)
-        cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, d.conf_threshold, CANDIDATES,
-                                               det._class_mask)
+        cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, d.conf_threshold,
+                                               d.nms_candidates, det._class_mask)
         off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
         cs = cs.contiguous()
     want = nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)
@@ -391,20 +446,8 @@ def live_paths(smi: str) -> dict:
                   f"{LETTERBOX_BF16_TOL})", flush=True)
             if gap > LETTERBOX_BF16_TOL:
                 fail(f"bf16 letterbox differs from float32 by {gap}")
-            iou = pipe.cfg.detection.iou_threshold
-            launch = lambda: nms_kernel.greedy_suppress(boxes, scores, iou)  # noqa: E731
-            plain = lambda: nms_kernel.greedy_suppress_reference(boxes, scores, iou)  # noqa: E731
-            out["b1"] = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
-                         "graph_ms": graph_ms(launch, iters=100),
-                         "plain_ms": cuda_time_ms(plain, iters=20),
-                         "bound": nms_bound_ms(boxes, scores),
-                         "valid": int((scores > 0).sum())}
-            b1 = out["b1"]
-            print(f"  K1 at B=1 (per-stage inputs, {b1['valid']} valid of {CANDIDATES}): "
-                  + ("not measured" if b1["trace_ms"] is None else f"{b1['trace_ms']:.5f} ms")
-                  + f" per launch (profiler trace); CUDA graph {b1['graph_ms']:.5f} ms; plain "
-                  f"version {b1['plain_ms']:.4f} ms; bound {b1['bound'][0]:.3e} ms "
-                  f"({b1['bound'][1]})", flush=True)
+            out["b1"] = k1_times(boxes, scores, pipe.cfg.detection.iou_threshold,
+                                 "B=1 (per-stage inputs)")
         del pipe
         torch.cuda.empty_cache()
 
@@ -882,23 +925,13 @@ def multistream_paths(smi: str) -> dict:
     msp.reset()
     chunk_ms = cuda_time_ms(lambda: msp.submit_chunk_packed(planes, H, W), iters=5)
     chunk_dev_ms = device_ms(lambda: msp.submit_chunk_packed(planes, H, W), iters=3)
-    iou = cfg.detection.iou_threshold
-    launch = lambda: nms_kernel.greedy_suppress(off, cs, iou)  # noqa: E731
-    plain = lambda: nms_kernel.greedy_suppress_reference(off, cs, iou)  # noqa: E731
-    k1 = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
-          "graph_ms": graph_ms(launch, iters=100), "plain_ms": cuda_time_ms(plain, iters=20),
-          "bound": nms_bound_ms(off, cs), "valid": int((cs > 0).sum())}
-    out["b32"] = k1
     out["chunk"] = {"chunk_ms": chunk_ms, "chunk_dev_ms": chunk_dev_ms}
     print(f"  (d) submit_chunk_packed (T = {T_MULTI}, S = {S_STREAMS}): {chunk_ms / b:.4f} ms per "
           f"frame slot ({chunk_ms:.3f} ms per chunk, CUDA events); device time "
           + ("not measured" if chunk_dev_ms is None else
              f"{chunk_dev_ms / b:.4f} ms per frame slot, device idle "
              f"{100 * (1 - chunk_dev_ms / chunk_ms):.1f} % of the chunk program"), flush=True)
-    print(f"  K1 at B = {b} ({k1['valid']} valid of {b * CANDIDATES}): "
-          + ("not measured" if k1["trace_ms"] is None else f"{k1['trace_ms']:.5f} ms")
-          + f" per launch (profiler trace); CUDA graph {k1['graph_ms']:.5f} ms; plain version "
-          f"{k1['plain_ms']:.4f} ms; bound {k1['bound'][0]:.3e} ms ({k1['bound'][1]})", flush=True)
+    out["b32"] = k1_times(off, cs, cfg.detection.iou_threshold, f"B = {b}")
 
     # (c) every stream of the batched program against the single-stream one
     chunks_ts = [frames_ts[c * T_MULTI:(c + 1) * T_MULTI] for c in range(INDEP_CHUNKS)]
@@ -996,6 +1029,584 @@ def multistream_paths(smi: str) -> dict:
     return out
 
 
+def _multipart(files: dict) -> tuple[bytes, str]:
+    """{field: (filename, bytes, content type)} -> (body, Content-Type), as a
+    browser's form upload frames it."""
+    boundary = "smokeboundary7"
+    body = b"".join(
+        f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+        f'filename="{filename}"\r\nContent-Type: {ctype}\r\n\r\n'.encode() + content + b"\r\n"
+        for name, (filename, content, ctype) in files.items())
+    return body + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def _http(base: str, method: str, path: str, body: bytes | None = None,
+          ctype: str | None = None, timeout: float = 300.0) -> tuple[bytes, dict]:
+    """One request; any status but 200 fails the run."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method=method,
+                                 headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        fail(f"{method} {path}: HTTP {e.code} {e.read()[:400]!r}")
+
+
+def _mjpeg_parts(content: bytes, boundary: bytes) -> list[bytes]:
+    """The JPEG payloads of a complete multipart/x-mixed-replace body."""
+    if not content.endswith(b"--" + boundary + b"--\r\n"):
+        fail("MJPEG body does not end with its closing boundary")
+    out = []
+    for piece in content.split(b"--" + boundary)[1:]:
+        if piece.startswith(b"--"):
+            continue
+        head, rest = piece.split(b"\r\n\r\n", 1)
+        n = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+        out.append(rest[:n])
+    return out
+
+
+def _jpeg(frame: np.ndarray) -> bytes:
+    import cv2
+
+    ok, buf = cv2.imencode(".jpg", frame)
+    if not ok:
+        fail("JPEG encode failed")
+    return buf.tobytes()
+
+
+def _unjpeg(data: bytes) -> np.ndarray:
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        fail("a served JPEG does not decode")
+    return img
+
+
+def _check_detection(data: dict, size: list[int], where: str) -> None:
+    """The reference's detection schema, finite boxes inside the frame."""
+    if set(data) - {"events", "zones"} != {"detections", "tracks", "inference_ms",
+                                           "num_objects", "image_size"}:
+        fail(f"{where}: keys {sorted(data)}")
+    if data["image_size"] != size or data["num_objects"] != len(data["detections"]):
+        fail(f"{where}: image_size {data['image_size']}, num_objects {data['num_objects']}")
+    for d in data["detections"] + data["tracks"]:
+        b = np.asarray(d["bbox"], np.float64)
+        if (b.shape != (4,) or not np.isfinite(b).all() or b[0] > b[2] or b[1] > b[3]
+                or not 0.0 < d["confidence"] <= 1.0 or not isinstance(d["class_name"], str)):
+            fail(f"{where}: bad entry {d}")
+
+
+def _watch_monitor(opened: list, want_parts: int, out: dict) -> None:
+    """Viewer thread of a ``LiveMonitor``: waits for it, connects to
+    ``/stream``, pulls ``/frame`` once a frame is published, then reads the
+    stream until ``want_parts`` distinct parts arrived or it ended.  Errors
+    go to ``out["error"]``."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        deadline = time.monotonic() + 300.0
+        while not opened:
+            if time.monotonic() > deadline:
+                raise TimeoutError("no LiveMonitor was opened")
+            time.sleep(0.01)
+        base = f"http://127.0.0.1:{opened[0].port}"
+        with urllib.request.urlopen(base + "/stream", timeout=60) as stream:
+            while True:
+                try:
+                    with urllib.request.urlopen(base + "/frame", timeout=30) as r:
+                        out["frame"] = _unjpeg(r.read()).shape
+                    break
+                except urllib.error.HTTPError as e:
+                    if e.code != 404 or time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.01)
+            buf, parts = b"", []
+            while len({p.tobytes() for p in parts}) < want_parts:
+                chunk = stream.read1(1 << 16)
+                if not chunk:
+                    break
+                buf += chunk
+                pieces = buf.split(b"--rtmodtlive")
+                buf = pieces[-1]
+                for piece in pieces[:-1]:
+                    if b"\r\n\r\n" in piece and b"image/jpeg" in piece:
+                        head, rest = piece.split(b"\r\n\r\n", 1)
+                        n = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+                        parts.append(_unjpeg(rest[:n]))
+        out["shapes"] = sorted({p.shape for p in parts})
+        out["distinct"] = len({p.tobytes() for p in parts})
+    except Exception as e:   # reported by the phase, which fails on it
+        out["error"] = f"{type(e).__name__}: {e}"
+
+
+def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0) -> tuple:
+    """Run ``module``'s ``main(argv)`` in a fresh interpreter and read K1's
+    launch count of that process from its last line.  Returns (process,
+    launches, seconds)."""
+    code = (f"import json, sys\nsys.path.insert(0, {ROOT!r})\n"
+            f"from {module} import main\nfrom rtmodt_tpu_torch.ops import nms_kernel\n"
+            f"rc = main({argv!r})\n"
+            "print(json.dumps({'k1_launches': nms_kernel.launches}), flush=True)\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], "\n", proc.stderr[-3000:], file=sys.stderr)
+        fail(f"{module} {' '.join(argv[:2])} exited {proc.returncode}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])["k1_launches"]
+    return proc, launches, seconds
+
+
+def serving_paths(smi: str, dense_q: dict) -> dict:
+    """Phase 9: the web app over a real socket (every route), the default
+    detector build, K1 on a served frame, 8-way concurrency, request times,
+    the MJPEG monitor behind ``Pipeline.run``, ``MultiStreamPipeline.run``
+    and the CLI, and ``tools/run_inference_torch.py``'s two subcommands.
+    Returns K1's launches per path, its mismatches, its time at B = 1 on a
+    served frame and the times; ``dense_q`` is phase 6 (d)'s dense-scene
+    quality, printed beside the tool's."""
+    import threading
+    from wsgiref.simple_server import make_server
+
+    import cv2
+
+    import rtmodt_tpu_torch.serving.monitor as monitor_mod
+    import rtmodt_tpu_torch.serving.server as srv
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DetectionConfig
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.detection.detector import Detector
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.serving.wsgi import _QuietHandler, _ThreadingWSGIServer
+    from rtmodt_tpu_torch.tracking.postprocess import write_mot_rows
+    from rtmodt_tpu_torch.utils.synthetic import (dense_moving_scene, moving_boxes_frame,
+                                                  write_synthetic_video)
+
+    out: dict = {"launches": {}, "mismatches": 0, "times": {}}
+    size = [W, H]
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]]}
+
+    def counted(name: str, want: int, fn):
+        """fn() with K1's launches counted; they must equal ``want`` (one per
+        frame detected, plus warmup or one per chunk where said)."""
+        nms_kernel.launches = 0
+        result = fn()
+        launches = nms_kernel.launches
+        out["launches"][name] = {"launches": launches, "expected": want}
+        print(f"  {name}: K1 launches {launches} (expected {want})", flush=True)
+        if launches != want:
+            fail(f"{name}: K1 launched {launches} times, expected {want}")
+        return result
+
+    det = Detector(DetectionConfig(model="yolov8s", num_classes=8, input_size=SIZE,
+                                   weights=WEIGHTS, conf_threshold=0.35, iou_threshold=0.45,
+                                   classes=None),
+                   device=DEVICE, warmup=True, warmup_shape=(H, W))
+    srv._singleton.set(det)
+    httpd = make_server("127.0.0.1", 0, srv.app, server_class=_ThreadingWSGIServer,
+                        handler_class=_QuietHandler)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, name="smoke-web", daemon=True)
+    server.start()
+    try:
+        # (a) every route over the socket, sequentially
+        print(f"  (a) the web app on {base}: rich640d YOLOv8s at {SIZE}, {W}x{H} frames",
+              flush=True)
+        health = json.loads(_http(base, "GET", "/api/health")[0])
+        print(f"  /api/health: {json.dumps(health)}", flush=True)
+        if (health["status"] != "ok" or health["backend"] != torch.device(DEVICE).type
+                or (DEVICE == "cuda" and torch.cuda.get_device_name(0) not in health["devices"])):
+            fail(f"/api/health: {health}")
+        samples = json.loads(_http(base, "GET", "/api/samples")[0])["samples"]
+        if len(samples) < 3:
+            fail(f"/api/samples lists {len(samples)} samples")
+
+        def sample_requests():
+            for s in samples:
+                data = json.loads(_http(base, "GET", f"/api/detect/sample/{s['filename']}")[0])
+                _check_detection(data, data["image_size"], s["filename"])
+        counted("serve_samples", len(samples), sample_requests)
+
+        upload = moving_boxes_frame(5, H, W, N_OBJECTS)[0]
+        body, ctype = _multipart({"file": ("frame.jpg", _jpeg(upload), "image/jpeg")})
+        data = counted("serve_image", 1, lambda: json.loads(
+            _http(base, "POST", "/api/detect/image", body, ctype)[0]))
+        _check_detection(data, size, "/api/detect/image")
+        if data["num_objects"] < N_OBJECTS // 2:
+            fail(f"/api/detect/image found {data['num_objects']} of {N_OBJECTS} objects")
+
+        zones = [dict(whole, cooldown_sec=3600)]
+        for algo in ("bytetrack", "deepsort"):
+            def session(algo=algo):
+                ids, n_events, last = set(), 0, None
+                for t in range(SERVE_FRAMES):
+                    payload = {"image": "data:image/jpeg;base64," + base64.b64encode(
+                        _jpeg(moving_boxes_frame(t, H, W, N_OBJECTS)[0])).decode(),
+                        "session_id": f"smoke-{algo}", "algorithm": algo}
+                    if algo == "bytetrack":
+                        payload["zones"] = zones
+                    last = json.loads(_http(base, "POST", "/api/detect/frame",
+                                            json.dumps(payload).encode(),
+                                            "application/json")[0])
+                    _check_detection(last, size, f"/api/detect/frame {algo} #{t}")
+                    ids |= {tr["track_id"] for tr in last["tracks"]}
+                    n_events += len(last.get("events", []))
+                return ids, n_events, last
+            ids, n_events, last = counted(f"serve_frames_{algo}", SERVE_FRAMES, session)
+            print(f"  /api/detect/frame x{SERVE_FRAMES}, {algo}: {len(ids)} ids, "
+                  f"{len(last['tracks'])} tracks on the last frame (ages "
+                  f"{sorted(tr['age'] for tr in last['tracks'])}), {n_events} zone events",
+                  flush=True)
+            old = sum(tr["age"] >= SERVE_FRAMES // 2 for tr in last["tracks"])
+            if (old < N_OBJECTS // 2 or len(ids) > 2 * N_OBJECTS
+                    or (algo == "bytetrack" and n_events == 0)):
+                fail(f"/api/detect/frame {algo}: ids do not persist or no zone event")
+
+        clip = os.path.join(OUT_DIR, "serve25.mp4")
+        write_synthetic_video(clip, frames=SERVE_CLIP, h=H, w=W, n_objects=N_OBJECTS,
+                              fps=LIVE_FPS, seed=6)
+        with open(clip, "rb") as f:
+            clip_bytes = f.read()
+        zone_json = json.dumps([dict(whole, dwell_time_sec=0.5)]).encode()
+        for algo in ("bytetrack", "botsort"):
+            body, ctype = _multipart({"file": ("clip.mp4", clip_bytes, "video/mp4"),
+                                      "zones": ("zones.json", zone_json, "application/json")})
+            data = counted(f"serve_track_video_{algo}", SERVE_CLIP, lambda: json.loads(
+                _http(base, "POST", f"/api/track/video?algorithm={algo}&max_frames=600",
+                      body, ctype)[0]))
+            out["times"][f"track_video_{algo}_fps"] = data["processing_fps"]
+            print(f"  /api/track/video, {algo}: {data['num_frames']} frames, "
+                  f"{data['num_tracks']} tracks, {len(data['events'])} events, zone counts "
+                  f"{json.dumps(data['zone_counts'])}; processing_fps {data['processing_fps']} "
+                  f"(host clock, {smi})", flush=True)
+            if (data["num_frames"] != SERVE_CLIP or data["image_size"] != size
+                    or data["video_fps"] != LIVE_FPS or not data["events"]
+                    or data["num_tracks"] > 3 * N_OBJECTS
+                    or any(e["zone_name"] != "whole_frame" for e in data["events"])):
+                fail(f"/api/track/video {algo}: {data['num_frames']} frames, "
+                     f"{len(data['events'])} events, {data['num_tracks']} tracks")
+
+        n_demo = int(STREAM_SECONDS * STREAM_FPS)
+        content, headers = counted("serve_stream_demo", n_demo, lambda: _http(
+            base, "GET", f"/api/stream/demo?seconds={STREAM_SECONDS:g}&fps={STREAM_FPS:g}"))
+        parts = _mjpeg_parts(content, b"rtmodtframe")
+        if len(parts) != n_demo or {_unjpeg(p).shape for p in parts} != {(480, 640, 3)}:
+            fail(f"/api/stream/demo: {len(parts)} parts of {n_demo}")
+        print(f"  /api/stream/demo: {len(parts)} MJPEG parts of 640x480 "
+              f"({headers.get('Content-Type')})", flush=True)
+
+        body, ctype = _multipart({"file": ("clip.mp4", clip_bytes, "video/mp4")})
+        t0 = time.perf_counter()
+        content, _ = counted("serve_stream_video", STREAM_VIDEO_FRAMES, lambda: _http(
+            base, "POST", f"/api/stream/video?max_frames={STREAM_VIDEO_FRAMES}", body, ctype))
+        seconds = time.perf_counter() - t0
+        parts = _mjpeg_parts(content, b"rtmodtframe")
+        if len(parts) != STREAM_VIDEO_FRAMES or {_unjpeg(p).shape for p in parts} != {(H, W, 3)}:
+            fail(f"/api/stream/video: {len(parts)} parts of {STREAM_VIDEO_FRAMES}")
+        out["times"]["stream_video_fps"] = len(parts) / seconds
+        print(f"  /api/stream/video: {len(parts)} annotated parts of {W}x{H} in "
+              f"{seconds:.3f} s: {len(parts) / seconds:.2f} frames/s (host clock, {smi})",
+              flush=True)
+
+        # (c) K1 at B = 1 on a served frame's own candidates
+        served = _unjpeg(_jpeg(upload))        # the frame the server decoded
+        boxes, scores, diff = _k1_at_b1(det, served, packed=False)
+        out["mismatches"] += diff
+        print(f"  (c) K1 at B=1 on a served frame's candidates: valid "
+              f"{int((scores > 0).sum())}, mismatches {diff}", flush=True)
+        if diff:
+            fail("K1 differs from its plain version on a served frame")
+        out["b1"] = k1_times(boxes, scores, det.cfg.iou_threshold, "B=1 (served frame)")
+
+        # (d) + (e) 8-way concurrency against sequential responses, with times
+        images = [_jpeg(moving_boxes_frame(3 * t, H, W, N_OBJECTS, seed=t)[0])
+                  for t in range(CONC_REQUESTS)]
+        bodies = [_multipart({"file": (f"{i}.jpg", img, "image/jpeg")}) for i, img in
+                  enumerate(images)]
+
+        def detect(i: int) -> tuple[dict, float]:
+            t0 = time.perf_counter()
+            data = json.loads(_http(base, "POST", "/api/detect/image", *bodies[i])[0])
+            return data, (time.perf_counter() - t0) * 1e3
+
+        want = [detect(i)[0] for i in range(CONC_REQUESTS)]
+        seq_ms = []
+        t0 = time.perf_counter()
+        for rep in range(CONC_THREADS):
+            for i in range(CONC_REQUESTS):
+                seq_ms.append(detect(i)[1])
+        seq_s = time.perf_counter() - t0
+        got: list = []
+        errors: list = []
+        lock = threading.Lock()
+
+        def client(k: int) -> None:
+            try:
+                for j in range(CONC_REQUESTS):
+                    i = (j + k) % CONC_REQUESTS
+                    data, ms = detect(i)
+                    with lock:
+                        got.append((i, data, ms))
+            except BaseException as e:   # noqa: BLE001 - reported below, fails the phase
+                with lock:
+                    errors.append(f"client {k}: {type(e).__name__}: {e}")
+
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(CONC_THREADS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        par_s = time.perf_counter() - t0
+        if errors or any(c.is_alive() for c in clients) or len(got) != CONC_THREADS * CONC_REQUESTS:
+            fail(f"(d) concurrent clients: {errors[:3]} ({len(got)} responses)")
+        gap = score_gap = 0.0
+        for i, data, _ in got:
+            w_ = want[i]
+            if ([d["class_id"] for d in data["detections"]]
+                    != [d["class_id"] for d in w_["detections"]]):
+                fail(f"(d) image {i}: concurrent classes differ from the sequential response")
+            if data["detections"]:
+                gap = max(gap, float(np.abs(np.array([d["bbox"] for d in data["detections"]])
+                                            - np.array([d["bbox"] for d in w_["detections"]]))
+                                     .max()))
+                score_gap = max(score_gap, max(abs(a["confidence"] - b["confidence"]) for a, b
+                                               in zip(data["detections"], w_["detections"])))
+        par_ms = [ms for _, _, ms in got]
+        n_req = CONC_THREADS * CONC_REQUESTS
+        out["times"]["detect_image"] = {
+            "seq_p50_ms": float(np.percentile(seq_ms, 50)),
+            "seq_p95_ms": float(np.percentile(seq_ms, 95)), "seq_rps": n_req / seq_s,
+            "par_p50_ms": float(np.percentile(par_ms, 50)),
+            "par_p95_ms": float(np.percentile(par_ms, 95)), "par_rps": n_req / par_s}
+        tm = out["times"]["detect_image"]
+        out["concurrency"] = {"box_gap_px": gap, "score_gap": score_gap}
+        print(f"  (d) {CONC_THREADS} threads x {CONC_REQUESTS} /api/detect/image: counts and "
+              f"classes equal the sequential responses; max box gap {gap:.6f} px (tolerance "
+              f"{CONC_BOX_TOL}), max score gap {score_gap:.2e}", flush=True)
+        print(f"  (e) /api/detect/image {W}x{H} JPEG, host clock ({smi}): sequential p50 "
+              f"{tm['seq_p50_ms']:.2f} ms, p95 {tm['seq_p95_ms']:.2f} ms, "
+              f"{tm['seq_rps']:.2f} requests/s; {CONC_THREADS}-way p50 {tm['par_p50_ms']:.2f} "
+              f"ms, p95 {tm['par_p95_ms']:.2f} ms, {tm['par_rps']:.2f} requests/s", flush=True)
+        if gap > CONC_BOX_TOL:
+            fail(f"(d) concurrent boxes differ from the sequential ones by {gap} px")
+
+        # why the server runs the device work on one thread: PyTorch keeps
+        # cuDNN's execution plans per thread, so a thread's first forward plans
+        # every convolution again
+        def detect_ms() -> float:
+            t0 = time.perf_counter()
+            det.detect(served)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        def on_fresh_thread() -> float:
+            res: dict = {}
+            th = threading.Thread(target=lambda: res.setdefault("ms", detect_ms()))
+            th.start()
+            th.join(timeout=120)
+            return res["ms"]
+
+        same = [detect_ms() for _ in range(5)]
+        fresh = [on_fresh_thread() for _ in range(5)]
+        out["times"]["detect_thread"] = {"same_ms": float(np.median(same)),
+                                         "fresh_ms": float(np.median(fresh))}
+        print(f"  (e) Detector.detect of a served {W}x{H} frame, host clock with a sync: "
+              f"{np.median(same):.2f} ms on a thread that ran it before, "
+              f"{np.median(fresh):.2f} ms on a fresh thread each call (median of 5)",
+              flush=True)
+
+        # (b) the default build: RTMODT_WEIGHTS unset -> random-init 80-class YOLOv8s
+        os.environ.pop("RTMODT_WEIGHTS", None)
+        srv._singleton.set(None)
+        data = counted("serve_default_build", 1, lambda: json.loads(_http(
+            base, "GET", f"/api/detect/sample/{samples[0]['filename']}")[0]))
+        built = srv._singleton.loaded()
+        print(f"  (b) default build: {built.cfg.model}, {built.cfg.num_classes} classes on "
+              f"{built.device}; {data['num_objects']} detections (random weights)", flush=True)
+        if (built is None or built.device.type != torch.device(DEVICE).type
+                or built.cfg.num_classes != 80
+                or next(built.model.parameters()).device.type != torch.device(DEVICE).type):
+            fail("(b) the default detector was not built on the card")
+        srv._singleton.set(det)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+
+    # (f) the monitor behind Pipeline.run, MultiStreamPipeline.run and the CLI
+    opened: list = []
+    inner_monitor = monitor_mod.LiveMonitor
+
+    class Watched(inner_monitor):
+        """The pipelines' monitor, held until the viewer thread is attached
+        so that the viewer sees the run from its first frame."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            opened.append(self)
+            deadline = time.monotonic() + 60.0
+            while self._viewers == 0:
+                if time.monotonic() > deadline:
+                    fail("(f) no viewer attached to the monitor")
+                time.sleep(0.01)
+
+    base_cfg = {"system": {"device": DEVICE, "log_dir": os.path.join(OUT_DIR, "logs")},
+                "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                              "weights": WEIGHTS},
+                "events": {"enabled": False},
+                "profiling": {"warmup_frames": 4, "log_interval": 0},
+                "visualization": {"enabled": False, "mjpeg_port": 0}}
+    monitor_mod.LiveMonitor = Watched
+    try:
+        for label, name, make, run, shape, launches in (
+                ("Pipeline.run per stage", "monitor_pipeline_run",
+                 lambda: Pipeline(load_config(overrides=_merge(base_cfg, {
+                     "profiling": {"per_stage": True}}))),
+                 lambda p: p.run(clip), (H, W, 3), SERVE_CLIP + WARMUP_ITERS),
+                ("MultiStreamPipeline.run, S = 2", "monitor_multistream_run",
+                 lambda: MultiStreamPipeline(load_config(overrides=_merge(base_cfg, {
+                     "visualization": {"enabled": True},
+                     "parallel": {"num_streams": 2, "chunk_size": T_MULTI}}))),
+                 lambda p: p.run([clip, clip]), (H, 2 * W, 3), SERVE_CLIP // T_MULTI)):
+            print(f"  (f) {label} with visualization.mjpeg_port 0 on {os.path.basename(clip)}",
+                  flush=True)
+            opened.clear()
+            pipe = make()
+            if isinstance(pipe, MultiStreamPipeline):
+                pipe.warmup((H, W), T_MULTI)
+            watch: dict = {}
+            reader = threading.Thread(target=_watch_monitor,
+                                      args=(opened, MONITOR_PARTS, watch))
+            reader.start()
+            torch.cuda.synchronize()
+            summary = counted(name, launches, lambda: run(pipe))
+            reader.join(timeout=120)
+            m = opened[0] if opened else None
+            print(f"  monitor: /frame {watch.get('frame')}, /stream {watch.get('distinct')} "
+                  f"distinct parts of {watch.get('shapes')}; {m and m._seq} frames "
+                  f"published, closed {m and m._closed}; run fps "
+                  f"{summary.get('fps_mean', summary.get('fps_aggregate'))}", flush=True)
+            if (reader.is_alive() or "error" in watch or watch.get("frame") != shape
+                    or watch.get("shapes") != [shape]
+                    or watch.get("distinct", 0) < MONITOR_PARTS
+                    or m is None or not m._closed or m._seq != SERVE_CLIP):
+                fail(f"(f) {label}: monitor {watch}")
+            del pipe
+            torch.cuda.empty_cache()
+    finally:
+        monitor_mod.LiveMonitor = inner_monitor
+
+    cli_cfg = os.path.join(OUT_DIR, "cli_monitor.yaml")
+    with open(cli_cfg, "w") as f:
+        json.dump(_merge(base_cfg, {"visualization": {"mjpeg_port": None},
+                                    "profiling": {"per_stage": True}}), f)
+    print("  (f) tools/run_pipeline_torch.py --mjpeg-port 0 as a subprocess", flush=True)
+    proc, launches, seconds = _counted_subprocess(
+        "tools.run_pipeline_torch", ["-c", cli_cfg, "-s", clip, "--mjpeg-port", "0"])
+    line = next((ln for ln in proc.stderr.splitlines() if "live monitor on http://" in ln), None)
+    out["launches"]["monitor_cli"] = {"launches": launches, "frames": SERVE_CLIP}
+    print(f"  CLI exit 0 in {seconds:.1f} s; {line and line.split('|')[-1].strip()}; K1 "
+          f"launches {launches} for {SERVE_CLIP} frames + {WARMUP_ITERS} warmup", flush=True)
+    if line is None or launches != SERVE_CLIP + WARMUP_ITERS:
+        fail(f"the CLI with --mjpeg-port: monitor line {line!r}, K1 launches {launches}")
+
+    # (g) tools/run_inference_torch.py detect and track
+    dev_flag = [] if DEVICE == "cuda" else ["--cpu"]
+    png_fast = [int(cv2.IMWRITE_PNG_COMPRESSION), 1]
+    img_dir = os.path.join(OUT_DIR, "ri_detect")
+    os.makedirs(img_dir, exist_ok=True)
+    coco = {"images": [], "annotations": [],
+            "categories": [{"id": c + 1, "name": str(c)} for c in range(8)]}
+    for t in range(RI_IMAGES):
+        frame, gt_boxes, labels, _ = dense_moving_scene(7 * t, H, W, n_objects=RI_OBJECTS,
+                                                        seed=DENSE_SEED)
+        cv2.imwrite(os.path.join(img_dir, f"{t + 1:06d}.png"), frame, png_fast)
+        coco["images"].append({"id": t + 1, "file_name": f"{t + 1:06d}.png"})
+        for (x1, y1, x2, y2), c in zip(gt_boxes, labels):
+            coco["annotations"].append({
+                "id": len(coco["annotations"]) + 1, "image_id": t + 1, "category_id": int(c) + 1,
+                "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)], "iscrowd": 0})
+    gt_json = os.path.join(OUT_DIR, "ri_gt.json")
+    with open(gt_json, "w") as f:
+        json.dump(coco, f)
+    print(f"  (g) run_inference_torch detect --evaluate: {RI_IMAGES} {W}x{H} frames, "
+          f"{len(coco['annotations'])} GT boxes", flush=True)
+    proc, launches, seconds = _counted_subprocess("tools.run_inference_torch", [
+        "detect", "--images", img_dir, "--gt-json", gt_json, "--weights", WEIGHTS,
+        "--num-classes", "8", "--input-size", str(SIZE), "--evaluate",
+        "--out", os.path.join(OUT_DIR, "ri_predictions.json"), *dev_flag])
+    m_det = json.loads("\n".join(proc.stdout.strip().splitlines()[:-1]))
+    out["launches"]["run_inference_detect"] = {"launches": launches, "frames": RI_IMAGES}
+    out["detect_eval"] = m_det
+    print(f"  detect: {json.dumps(m_det)} ({seconds:.1f} s, K1 launches {launches})", flush=True)
+    if launches != RI_IMAGES or not m_det["mAP"] > 0.3:
+        fail(f"run_inference_torch detect: mAP {m_det['mAP']}, K1 launches {launches}")
+    # K1 on this path's own shape: the tool's detector (conf 0.001, K = 1000)
+    # on the frames it read, bit-equal to the plain version
+    tool_det = Detector(DetectionConfig(model="yolov8s", weights=WEIGHTS, num_classes=8,
+                                        input_size=SIZE, conf_threshold=0.001, classes=None,
+                                        max_detections=300, nms_candidates=1000),
+                        device=DEVICE, warmup=False)
+    diff, valid = 0, []
+    for img in coco["images"]:
+        boxes, scores, d = _k1_at_b1(
+            tool_det, cv2.imread(os.path.join(img_dir, img["file_name"])), packed=False)
+        diff += d
+        valid.append(int((scores > 0).sum()))
+    out["mismatches"] += diff
+    print(f"  K1 at B=1 on the detect frames' candidates (K = {scores.shape[1]}): valid "
+          f"{valid}, mismatches {diff}", flush=True)
+    if diff:
+        fail("K1 differs from its plain version on run_inference_torch detect's frames")
+    out["b1_detect"] = k1_times(boxes, scores, tool_det.cfg.iou_threshold,
+                                "B=1 (run_inference detect, last frame)")
+    del tool_det
+    torch.cuda.empty_cache()
+
+    seq_dir = os.path.join(OUT_DIR, "ri_dense")
+    os.makedirs(seq_dir, exist_ok=True)
+    gt_rows = []
+    for t in range(DENSE_FRAMES):
+        frame, gt_boxes, _, ids = dense_moving_scene(t, H, W, n_objects=DENSE_OBJECTS,
+                                                     seed=DENSE_SEED)
+        cv2.imwrite(os.path.join(seq_dir, f"{t + 1:06d}.png"), frame, png_fast)
+        gt_rows += [(t + 1, int(i) + 1, x1, y1, x2 - x1, y2 - y1, 1.0)
+                    for (x1, y1, x2, y2), i in zip(gt_boxes, ids)]
+    gt_mot = os.path.join(OUT_DIR, "ri_dense_gt.txt")
+    write_mot_rows(gt_mot, gt_rows)
+    out["track_eval"] = {}
+    for gap in (0, 20):
+        print(f"  (g) run_inference_torch track --gt-mot: dense scene seed {DENSE_SEED}, "
+              f"{DENSE_OBJECTS} objects, {DENSE_FRAMES} frames, --interpolate {gap}", flush=True)
+        proc, launches, seconds = _counted_subprocess("tools.run_inference_torch", [
+            "track", "--video", seq_dir, "--gt-mot", gt_mot, "--weights", WEIGHTS,
+            "--num-classes", "8", "--input-size", str(SIZE), "--track-thresh", "0.3",
+            "--interpolate", str(gap), "--out", os.path.join(OUT_DIR, f"ri_tracks{gap}.txt"),
+            *dev_flag])
+        q = json.loads("\n".join(proc.stdout.strip().splitlines()[:-1]))
+        out["launches"][f"run_inference_track_i{gap}"] = {"launches": launches,
+                                                          "frames": DENSE_FRAMES}
+        out["track_eval"][gap] = q
+        print(f"  track --interpolate {gap}: IDF1 {q['idf1']:.4f}, MOTA {q['mota']:.4f}, "
+              f"ID switches {q['num_switches']}, HOTA {q['hota']:.4f} ({seconds:.1f} s, K1 "
+              f"launches {launches}); phase 6 (d)'s per-stage run: IDF1 "
+              f"{dense_q['idf1']:.4f}, switches {dense_q['num_switches']}", flush=True)
+        if launches != DENSE_FRAMES or q["idf1"] < IDF1_FLOOR:
+            fail(f"run_inference_torch track: IDF1 {q['idf1']}, K1 launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -1016,13 +1627,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/8 card")
+    phase("1/9 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/8 build kernels (nvcc -> ctypes)")
+    phase("2/9 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -1035,7 +1646,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/8 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/9 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -1058,7 +1669,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/8 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/9 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -1101,7 +1712,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/8 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/9 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -1214,17 +1825,23 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/8 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/9 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/8 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/9 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/8 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/9 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
+    phase("9/9 serving: the web app over a socket, the default build, 8-way concurrency, "
+          "the MJPEG monitor, run_inference_torch")
+    t9 = time.perf_counter()
+    serving = serving_paths(smi, live["quality"])
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
-               **live["launches"], **trackers["launches"], **multi["launches"]}
+               **live["launches"], **trackers["launches"], **multi["launches"],
+               **serving["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1242,6 +1859,11 @@ def main() -> int:
                                     "plain_ms": multi["b32"]["plain_ms"],
                                     "bound_ms": multi["b32"]["bound"][0],
                                     "bound_by": multi["b32"]["bound"][1]},
+        # K1 at B = 1 on served frames
+        **{key: {"ms": t["trace_ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
+           for key, t in (("b1_served", serving["b1"]),            # phase 9 (c)
+                          ("b1_detect", serving["b1_detect"]))},   # phase 9 (g), K = 1000
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -200,7 +200,7 @@ class VisualizationConfig:
     save_path: str = "outputs/annotated.mp4"
     codec: str = "mp4v"                 # cv2 fourcc for save_video
     window_name: str = "RTMODT-TPU"     # --display window title
-    mjpeg_port: int | None = None       # not ported: must stay null
+    mjpeg_port: int | None = None       # serve annotated frames as MJPEG (serving/monitor.py)
 
 
 @dataclass
@@ -394,9 +394,11 @@ def validate(cfg: PipelineConfig) -> None:
     if cfg.profiling.trace_dir:
         raise ValueError("profiling.trace_dir is not ported (ROADMAP item 12); "
                          "leave it null")
-    if cfg.visualization.mjpeg_port is not None:
-        raise ValueError("visualization.mjpeg_port is not ported: the MJPEG monitor "
-                         "comes with ROADMAP item 12; leave it null")
+    vz = cfg.visualization
+    if vz.mjpeg_port is not None and not (
+            isinstance(vz.mjpeg_port, int) and 0 <= vz.mjpeg_port <= 65535):
+        raise ValueError("visualization.mjpeg_port must be an int in "
+                         f"[0, 65535] or null, got {vz.mjpeg_port!r}")
     d = cfg.detection
     if not (0.0 <= d.conf_threshold <= 1.0):
         raise ValueError(f"detection.conf_threshold must be in [0,1], got {d.conf_threshold}")

@@ -63,8 +63,9 @@ class MosaicAnnotator:
     """Host-side annotated output of the multi-camera mode: each stream's
     tracks drawn on its BGR frame (the single-stream ``FrameRenderer``) and
     the S streams tiled into one mosaic frame for ``--display`` /
-    ``--save-video``.  Track ids are per stream, so are the centroid trails;
-    a dead or short slot gets a black tile.  ``visualization.enabled:
+    ``--save-video`` / the MJPEG monitor (``visualization.mjpeg_port``).
+    Track ids are per stream, so are the centroid trails; a dead or short
+    slot gets a black tile.  ``visualization.enabled:
     false`` still tiles the raw streams, without drawing."""
 
     def __init__(self, vcfg, names: list[str], num_streams: int):
@@ -327,10 +328,15 @@ class MultiStreamPipeline:
                        for _ in range(s_streams)]
             for si, eng in enumerate(engines):
                 eng.extra_metadata = {"stream": si}
-        # the annotated mosaic (window and/or video file) is opt-in: the
-        # headless loop keeps no BGR frame on the host
-        render_on = display or vcfg.save_video
+        # the annotated mosaic (window, video file and/or MJPEG monitor) is
+        # opt-in: the headless loop keeps no BGR frame on the host
+        render_on = display or vcfg.save_video or vcfg.mjpeg_port is not None
         annot = MosaicAnnotator(vcfg, names, s_streams) if render_on else None
+        monitor = None
+        if vcfg.mjpeg_port is not None:
+            from rtmodt_tpu_torch.serving.monitor import LiveMonitor
+
+            monitor = LiveMonitor(vcfg.mjpeg_port)
         render_zones = engines[0].get_zone_polygons() if (render_on and engines) else []
         writer = None
 
@@ -408,6 +414,8 @@ class MultiStreamPipeline:
                 if all(f is None for f in row):
                     continue   # trailing all-blank rows of the last chunk
                 grid = annot.mosaic(host, t, row, render_zones, fps_now)
+                if monitor is not None:
+                    monitor.publish(grid)
                 if vcfg.save_video:
                     if writer is None:
                         os.makedirs(os.path.dirname(vcfg.save_path) or ".", exist_ok=True)
@@ -497,6 +505,8 @@ class MultiStreamPipeline:
                     pass
             for wk in workers:
                 wk.join(timeout=5.0)
+            if monitor is not None:
+                monitor.close()
             if writer is not None:
                 writer.release()
                 logger.info(f"mosaic video written: {vcfg.save_path}")

@@ -122,11 +122,13 @@ class Pipeline:
         self._gmc_on = t.gmc.method == "phase"
         self._gmc_carry = None
         v = self.cfg.visualization
+        # the live monitor streams annotated frames, so mjpeg_port implies
+        # the renderer
         self.renderer = FrameRenderer(
             show_boxes=v.show_boxes, show_labels=v.show_labels,
             show_trails=v.show_trails, show_zones=v.show_zones,
             show_hud=v.show_hud, trail_length=v.trail_length,
-        ) if v.enabled else None
+        ) if (v.enabled or v.mjpeg_port is not None) else None
         self._per_stage = self.cfg.profiling.per_stage
         self.reset()
         if warmup_shape:
@@ -385,9 +387,10 @@ class Pipeline:
             max_frames: int | None = None) -> dict[str, float]:
         """The full CLI loop over ``source`` (a video path, RTSP URL or webcam
         index; default ``ingestion.source``): detect, track, raise zone
-        events, render, display and save the annotated video as configured.
-        ``max_frames`` of 0 or None means no limit.  Returns the profiler's
-        summary."""
+        events, render, display and save the annotated video as configured;
+        with ``visualization.mjpeg_port`` set, a ``LiveMonitor`` serves the
+        annotated frames as MJPEG for the length of the run.  ``max_frames``
+        of 0 or None means no limit.  Returns the profiler's summary."""
         vcfg = self.cfg.visualization
         if (self.cfg.parallel.chunk_size > 1 and not display and not vcfg.save_video
                 and self.renderer is None and not self._per_stage
@@ -397,6 +400,11 @@ class Pipeline:
 
         reader = self._reader(source)
         writer = None
+        monitor = None
+        if vcfg.mjpeg_port is not None:
+            from rtmodt_tpu_torch.serving.monitor import LiveMonitor
+
+            monitor = LiveMonitor(vcfg.mjpeg_port)
         zones = self.events.get_zone_polygons() if self.events else []
         names = self.detector.class_names
         per_frame_step = self._per_stage or self._host_tracker
@@ -415,6 +423,8 @@ class Pipeline:
                                      latency_ms=p.summary().get("total_mean_ms", 0.0))
                 p.tock("visualization")
             p.end_frame()
+            if monitor is not None:
+                monitor.publish(frame)
             if vcfg.save_video:
                 if writer is None:
                     os.makedirs(os.path.dirname(vcfg.save_path) or ".", exist_ok=True)
@@ -479,6 +489,8 @@ class Pipeline:
         except KeyboardInterrupt:
             logger.info("interrupted")
         finally:
+            if monitor is not None:
+                monitor.close()
             if writer is not None:
                 writer.release()
             if display:

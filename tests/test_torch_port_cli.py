@@ -97,7 +97,7 @@ def test_cli_prints_the_final_profile_and_zone_counts(runs):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--mjpeg-port", "0"], "ROADMAP item 12"),
+    (["--mjpeg-port", "0", "--resume-state", "state.npz"], "ROADMAP item 9"),
     (["--resume-state", "state.npz"], "ROADMAP item 9"),
     (["--state-interval", "10"], "ROADMAP item 9"),
     (["-s", "a.mp4", "-s", "b.mp4", "--resume-state", "state.npz"], "ROADMAP item 9"),

@@ -1,7 +1,8 @@
 """Import hygiene, device rules and the smoke script's refusal paths.
 
 The port must import no JAX module, nothing of the JAX package, and neither
-cv2 nor yaml on its main path; asked for CUDA where there is none it raises;
+cv2 nor yaml on its main path (nor click: the port's entry points parse
+their flags with argparse); asked for CUDA where there is none it raises;
 ``chip_smoke.py`` exits non-zero with no result line where CUDA is absent or
 where it stands alone without the package.
 """
@@ -27,12 +28,14 @@ for n in names:
     importlib.import_module(n)
 importlib.import_module("tools.run_pipeline_torch")
 importlib.import_module("tools.compare_trackers_torch")
+importlib.import_module("tools.run_inference_torch")
+importlib.import_module("start_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "flax"))
              or k == "rtmodt_tpu" or k.startswith("rtmodt_tpu."))
-print(json.dumps({"modules": names, "bad": bad,
+print(json.dumps({"modules": names, "bad": bad, "click": "click" in sys.modules,
                   "cv2": "cv2" in sys.modules, "yaml": "yaml" in sys.modules}))
 """
 
@@ -49,7 +52,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert not out["cv2"] and not out["yaml"]
+    assert not out["cv2"] and not out["yaml"] and not out["click"]
     for mod in ("rtmodt_tpu_torch.runtime.pipeline", "rtmodt_tpu_torch.ops.nms_kernel",
                 "rtmodt_tpu_torch.events.zone_engine", "rtmodt_tpu_torch._build",
                 "rtmodt_tpu_torch.ingestion.rtsp_reader",
@@ -61,7 +64,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.ops.lapjv", "rtmodt_tpu_torch.models.embedder",
                 "rtmodt_tpu_torch.tracking.ocsort", "rtmodt_tpu_torch.tracking.deepsort",
                 "rtmodt_tpu_torch.tracking.botsort", "rtmodt_tpu_torch.tracking.host_kalman",
-                "rtmodt_tpu_torch.tracking.host_bytetrack"):
+                "rtmodt_tpu_torch.tracking.host_bytetrack",
+                "rtmodt_tpu_torch.serving.wsgi", "rtmodt_tpu_torch.serving.server",
+                "rtmodt_tpu_torch.serving.monitor", "rtmodt_tpu_torch.tracking.postprocess",
+                "rtmodt_tpu_torch.evaluation.coco_eval", "rtmodt_tpu_torch.evaluation.metrics"):
         assert mod in out["modules"]
 
 
@@ -94,6 +100,27 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_server_builds_its_detector_on_the_card_or_raises(monkeypatch):
+    from rtmodt_tpu_torch.serving.server import _DetectorSingleton
+
+    monkeypatch.delenv("RTMODT_WEIGHTS", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    single = _DetectorSingleton()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        single.get()
+    assert single.loaded() is None
+
+
+@pytest.mark.parametrize("args", [["detect", "--images", "."], ["track", "--video", "x.mp4"]])
+def test_run_inference_without_cpu_flag_needs_the_card(monkeypatch, args):
+    from tools.run_inference_torch import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        main(args)
+    assert "CUDA is not available" in str(exc.value.code)
 
 
 def test_cli_asked_for_the_card_without_one_exits_nonzero_and_writes_no_events(tmp_path):

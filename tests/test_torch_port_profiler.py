@@ -72,7 +72,7 @@ def test_new_sections_default_to_the_reference_default_yaml():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"profiling": {"trace_dir": "traces"}}, "ROADMAP item 12"),
-    ({"visualization": {"mjpeg_port": 8080}}, "ROADMAP item 12"),
+    ({"visualization": {"mjpeg_port": 70000}}, "visualization.mjpeg_port"),
     ({"system": {"device": "gpu"}}, "system.device"),
     ({"ingestion": {"backend": "ffmpeg"}}, "ingestion.backend"),
     ({"ingestion": {"resolution": [640]}}, "ingestion.resolution"),

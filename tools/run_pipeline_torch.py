@@ -3,15 +3,17 @@
 
 The port's counterpart of ``tools/run_pipeline.py``, with the same flags:
 ``-c/--config``, ``-s/--source``, ``--display/--no-display``,
-``--max-frames`` and ``--save-video``.  It runs ``rtmodt_tpu_torch``'s
+``--max-frames``, ``--save-video`` and ``--mjpeg-port``.  It runs ``rtmodt_tpu_torch``'s
 ``Pipeline.run`` on the device that ``system.device`` names (``cpu``, or
 ``cuda``/``tpu`` for the card) and prints the final profile and the zone
 counts.  Several ``-s`` set ``parallel.num_streams`` and run
 ``MultiStreamPipeline.run`` over the sources (one card; ``--display`` and
 ``--save-video`` tile the annotated streams into one mosaic), which prints
-the multi-camera summary.  Not ported, and refused with a non-zero exit:
-``--mjpeg-port`` (ROADMAP item 12) and ``--resume-state``/``--state-interval``
-(item 9).
+the multi-camera summary.  ``--mjpeg-port N`` serves the annotated frames
+(the mosaic with several ``-s``) as MJPEG on port N while the run lasts
+(``http://host:N/``; 0 picks a free port, which the log names).  Not
+ported, and refused with a non-zero exit: ``--resume-state`` /
+``--state-interval`` (ROADMAP item 9).
 
     python tools/run_pipeline_torch.py -c cfg.yaml -s video.mp4 --max-frames 100
     python tools/run_pipeline_torch.py -c cfg.yaml -s cam0.mp4 -s cam1.mp4
@@ -30,7 +32,6 @@ from rtmodt_tpu_torch.config import load_config  # noqa: E402
 from rtmodt_tpu_torch.utils.logging import logger  # noqa: E402
 
 _NOT_PORTED = {
-    "mjpeg_port": "--mjpeg-port (the MJPEG monitor) is not ported: ROADMAP item 12",
     "state_path": "--resume-state is not ported: ROADMAP item 9",
     "state_interval": "--state-interval (resume snapshots) is not ported: ROADMAP item 9",
 }
@@ -48,7 +49,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--max-frames", type=int, default=None, help="stop after N frames")
     ap.add_argument("--save-video", action="store_true", default=False,
                     help="write the annotated video to visualization.save_path")
-    ap.add_argument("--mjpeg-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mjpeg-port", type=int, default=None,
+                    help="serve the annotated frames as MJPEG on this port "
+                         "(http://host:PORT/; implies visualization)")
     ap.add_argument("--resume-state", dest="state_path", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--state-interval", type=int, default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
@@ -67,6 +70,10 @@ def main(argv: list[str] | None = None) -> int:
         overrides["parallel"] = {"num_streams": len(args.source)}
     if args.save_video:
         overrides["visualization"] = {"save_video": True}
+    if args.mjpeg_port is not None:
+        # the monitor streams ANNOTATED frames, so it implies visualization
+        overrides.setdefault("visualization", {}).update(
+            {"mjpeg_port": args.mjpeg_port, "enabled": True})
     cfg = load_config(args.config_path, overrides)
 
     os.makedirs(cfg.system.log_dir, exist_ok=True)
