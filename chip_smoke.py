@@ -70,7 +70,23 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      (the mosaic) and the CLI's ``--mjpeg-port``, read by a viewer thread;
      (g) ``tools/run_inference_torch.py`` ``detect --evaluate`` (mAP) and
      ``track --gt-mot`` on the dense scene of 6 (d), without and with
-     ``--interpolate 20``.
+     ``--interpolate 20``;
+ 10. kill-and-resume, device zone masks and the transports, on 25-fps 720p
+     files with zones on: (a) ``run_chunked`` (K = 16, 128 frames, a
+     snapshot every 32) against half of it, a snapshot and a fresh
+     ``Pipeline`` that resumes: equal event logs and zone counts, the
+     snapshot's bytes, save and load ms, K1 bit for bit on the first resumed
+     chunk's candidates; (b) the same on the per-stage path; (c) the CLI with
+     ``--resume-state`` killed by SIGKILL after its first snapshot and
+     started again, its log cut at the snapshot's ``log_offset``: the events
+     of the uninterrupted CLI, and the seconds from the restart to the first
+     resumed frame; (d) ``MultiStreamPipeline.run`` at S = 4, T = 8, half
+     then resume, each stream's events equal, ``per_stream_frames`` [64] * 4;
+     (e) ``events.device_masks`` on ``run_chunked``: the host-mask run's
+     events, masks equal to ``points_in_polygons`` on the CPU, the mask
+     step's ms per chunk; (f) planes, x6 and x24 through
+     ``submit_packed_yuv`` (and planes, x6 through ``submit_chunk_packed``)
+     give bit-equal tracks; ``transport: bgr`` through ``run_chunked``.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -135,6 +151,14 @@ LETTERBOX_BF16_TOL = 0.02
 # compounds through ~70 layers; a mapping or layout fault is O(1) of the
 # logit range, an arithmetic-precision gap a few percent of it.
 MODEL_REL_TOL = 0.05
+# phase 10: kill-and-resume, device zone masks, the x6 / x24 / bgr transports
+RESUME_FRAMES = 128     # the chunked file (25 fps, 720p); resumed at half
+RESUME_INTERVAL = 32    # state_interval of the chunked runs
+RESUME_LIVE_FRAMES = 64     # the per-stage runs, resumed at half
+RESUME_LIVE_INTERVAL = 16
+CLI_KILL_FRAMES = 320   # the CLI's file: long enough to be killed mid-run
+CLI_KILL_INTERVAL = 16
+RESUME_BOX_TOL = 1e-3   # px, event boxes of a resumed run against the uninterrupted one
 # phase 9: serving
 SERVE_FRAMES = 16      # /api/detect/frame requests of each webcam session
 SERVE_CLIP = 48        # frames of the 25-fps 720p clip (track/video, the monitor, the CLI)
@@ -1607,6 +1631,393 @@ def serving_paths(smi: str, dense_q: dict) -> dict:
     return out
 
 
+def _event_rows(path: str) -> list[dict]:
+    """A zone-event JSONL without the wall-clock ``timestamp_utc``."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        r.pop("timestamp_utc")
+    return rows
+
+
+def _same_events(got_log: str, want_log: str, what: str) -> int:
+    """Fail unless the two logs hold the same events (``bbox_xyxy`` within
+    RESUME_BOX_TOL px); returns their number."""
+    got, want = _event_rows(got_log), _event_rows(want_log)
+    if not want:
+        fail(f"{what}: the uninterrupted run wrote no event")
+    gap = 0.0
+    if len(got) == len(want):
+        gap = max(float(np.abs(np.subtract(g.pop("bbox_xyxy"), w.pop("bbox_xyxy"))).max())
+                  for g, w in zip(got, want))
+    if len(got) != len(want) or got != want or gap > RESUME_BOX_TOL:
+        fail(f"{what}: {len(got)} events against the uninterrupted run's {len(want)} "
+             f"(box gap {gap})")
+    return len(want)
+
+
+def _fresh(*paths: str) -> None:
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+
+
+def _cli_child(argv: list[str], saves: str) -> str:
+    """Child code that runs the CLI's ``main(argv)``.  Each time the pipeline
+    writes a snapshot it first records K1's launch count under that
+    snapshot's ``frames_done`` in ``saves`` (so a child killed after a
+    snapshot has left that snapshot's count there); when it exits it prints
+    the count and the wall time of its first consumed frame."""
+    return (f"import json, os, sys, time\nsys.path.insert(0, {ROOT!r})\n"
+            "from rtmodt_tpu_torch.events import zone_engine\n"
+            "from rtmodt_tpu_torch.ops import nms_kernel\n"
+            "from rtmodt_tpu_torch.runtime import pipeline\n"
+            "from tools.run_pipeline_torch import main\n"
+            "first = []\ninner = zone_engine.ZoneEventEngine.process_chunk\n"
+            "def process_chunk(self, *a, **k):\n"
+            "    first.append(first[0] if first else time.time())\n"
+            "    return inner(self, *a, **k)\n"
+            "zone_engine.ZoneEventEngine.process_chunk = process_chunk\n"
+            "counts = {}\ninner_save = pipeline.Pipeline.save_runtime_state\n"
+            "def save_runtime_state(self, path, frames_done=0, last_ts=0.0):\n"
+            "    counts[str(int(frames_done))] = nms_kernel.launches\n"
+            f"    with open({saves + '.tmp'!r}, 'w') as f:\n"
+            "        json.dump(counts, f)\n"
+            f"    os.replace({saves + '.tmp'!r}, {saves!r})\n"
+            "    return inner_save(self, path, frames_done, last_ts)\n"
+            "pipeline.Pipeline.save_runtime_state = save_runtime_state\n"
+            f"rc = main({argv!r})\n"
+            "print(json.dumps({'k1_launches': nms_kernel.launches,\n"
+            "                  'first_frame': first[0] if first else None}), flush=True)\n"
+            "sys.exit(rc)\n")
+
+
+def resume_paths(smi: str) -> dict:
+    """Phase 10: kill-and-resume on the chunked, per-stage and multi-stream
+    paths and through a killed CLI, device zone masks, the x6 / x24 / bgr
+    transports.  Every resumed run must write the uninterrupted run's events.
+    Returns K1's launches per run and its mismatches."""
+    import signal
+
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DEFAULTS
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.polygon import points_in_polygons
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, planes_to_x6, planes_to_x24
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    zones = DEFAULTS["events"]["zones"] + [whole]
+    base = {"system": {"device": DEVICE, "log_dir": os.path.join(OUT_DIR, "logs")},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS},
+            "profiling": {"warmup_frames": 0, "log_interval": 0},
+            "visualization": {"enabled": False},
+            "parallel": {"chunk_size": K}}
+
+    def cfg_for(log: str, **over):
+        return load_config(overrides=_merge(_merge(base, over), {
+            "events": {"zones": zones, "alert": {"log_path": log}}}))
+
+    def counted(name: str, frames: int, fn):
+        torch.cuda.synchronize()
+        nms_kernel.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = {"launches": nms_kernel.launches, "frames": frames}
+        return result, nms_kernel.launches
+
+    clip = os.path.join(OUT_DIR, "resume720.mp4")
+    write_synthetic_video(clip, frames=RESUME_FRAMES, h=H, w=W, n_objects=N_OBJECTS,
+                          fps=LIVE_FPS, seed=11)
+    half = RESUME_FRAMES // 2
+    chunk_cfg = {"profiling": {"per_stage": False}}
+
+    # (a) the chunked path: uninterrupted, then half + a fresh pipeline
+    print(f"  (a) run_chunked resume: {RESUME_FRAMES} frames of {W}x{H} at {LIVE_FPS:g} fps, "
+          f"K = {K}, state_interval {RESUME_INTERVAL}", flush=True)
+    logs = {n: os.path.join(OUT_DIR, f"resume_{n}.jsonl") for n in ("whole", "cut", "masks",
+                                                                      "bgr")}
+    snap = os.path.join(OUT_DIR, "resume_state.npz")
+    _fresh(*logs.values(), snap)
+    pipe = Pipeline(cfg_for(logs["whole"], **chunk_cfg))
+    pipe.run_chunked(clip, max_frames=2 * K)              # warm-up: cuDNN plans
+    pipe.reset()
+    _fresh(logs["whole"])
+    whole_summary, _ = counted("resume_chunk_whole", RESUME_FRAMES,
+                               lambda: pipe.run_chunked(clip))
+    whole_counts = pipe.events.zone_counts()
+    first = Pipeline(cfg_for(logs["cut"], **chunk_cfg))
+    counted("resume_chunk_first_half", half, lambda: first.run_chunked(
+        clip, max_frames=half, state_path=snap, state_interval=RESUME_INTERVAL))
+    save_ms = []
+    timing = snap[:-len(".npz")] + "_timing.npz"
+    for _ in range(5):      # the same snapshot again, to another path
+        t0 = time.perf_counter()
+        first.save_runtime_state(timing, half, (half - 1) / LIVE_FPS)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    _fresh(timing)
+    nbytes = os.path.getsize(snap)
+    resumed = Pipeline(cfg_for(logs["cut"], **chunk_cfg))
+    t0 = time.perf_counter()
+    skip = resumed.load_runtime_state(snap)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if skip != half:
+        fail(f"the chunked snapshot holds frames_done {skip}, not {half}")
+    summary, launches = counted("resume_chunk_resumed", RESUME_FRAMES - half, lambda:
+                                resumed.run_chunked(clip, state_path=snap, skip_frames=skip))
+    n_ev = _same_events(logs["cut"], logs["whole"], "chunked resume")
+    if resumed.events.zone_counts() != whole_counts or launches != summary["chunks"]:
+        fail(f"chunked resume: zone counts {resumed.events.zone_counts()} against "
+             f"{whole_counts}; K1 launches {launches} for {summary['chunks']} chunks")
+    out["snapshot"] = {"bytes": nbytes, "save_ms": float(np.median(save_ms)),
+                       "load_ms": load_ms}
+    print(f"  chunked resume: {n_ev} events equal to the uninterrupted run's, zone counts "
+          f"{json.dumps(whole_counts)}; snapshot {nbytes} bytes, save "
+          f"{out['snapshot']['save_ms']:.3f} ms (median of 5), load {load_ms:.3f} ms "
+          f"(host clock); uninterrupted e2e {whole_summary['fps']:.2f} frames/s", flush=True)
+    # K1 on the first resumed chunk's real candidates
+    import cv2
+
+    cap = cv2.VideoCapture(clip)
+    frames = [cap.read()[1] for _ in range(half + K)][half:]
+    cap.release()
+    planes, meta = pack_chunk(np.stack(frames), SIZE)
+    dev_planes = tuple(torch.from_numpy(p).to(DEVICE) for p in planes)
+    _, cs, diff = _k1_chunk(resumed, dev_planes, meta)
+    out["mismatches"] += diff
+    print(f"  K1 on the first resumed chunk's candidates (B={K}): valid "
+          f"{int((cs > 0).sum())}, mismatches {diff}", flush=True)
+    if diff:
+        fail("K1 differs from its plain version on a resumed chunk")
+
+    # (b) the per-stage path, where the reference's warmup wipes the restored state
+    n_live = RESUME_LIVE_FRAMES
+    print(f"  (b) Pipeline.run per stage: resume at {n_live // 2} of {n_live} frames", flush=True)
+    stage = {"profiling": {"per_stage": True}}
+    slog, scut, ssnap = (os.path.join(OUT_DIR, n) for n in (
+        "resume_stage_whole.jsonl", "resume_stage_cut.jsonl", "resume_stage.npz"))
+    _fresh(slog, scut, ssnap)
+    p_whole = Pipeline(cfg_for(slog, **stage))
+    counted("resume_stage_whole", n_live, lambda: p_whole.run(clip, max_frames=n_live))
+    p1 = Pipeline(cfg_for(scut, **stage))
+    counted("resume_stage_first_half", n_live // 2, lambda: p1.run(
+        clip, max_frames=n_live // 2, state_path=ssnap, state_interval=RESUME_LIVE_INTERVAL))
+    p2 = Pipeline(cfg_for(scut, **stage))
+    skip = p2.load_runtime_state(ssnap)
+    restored_ids = int(p2.tracker.state.next_id)
+    _, launches = counted("resume_stage_resumed", n_live - skip, lambda: p2.run(
+        clip, max_frames=n_live - skip, state_path=ssnap, skip_frames=skip))
+    n_ev = _same_events(scut, slog, "per-stage resume")
+    if p2.events.zone_counts() != p_whole.events.zone_counts():
+        fail("per-stage resume: zone counts differ from the uninterrupted run's")
+    if launches != n_live - skip + WARMUP_ITERS:
+        fail(f"per-stage resume: K1 launched {launches} times for {n_live - skip} frames")
+    print(f"  per-stage resume at frame {skip} (next_id {restored_ids} restored and kept "
+          f"through warmup): {n_ev} events equal", flush=True)
+
+    # (c) a real kill: the CLI as a subprocess, SIGKILL after its first snapshot
+    print(f"  (c) the CLI killed after its first snapshot and started again "
+          f"(--state-interval {CLI_KILL_INTERVAL}, {CLI_KILL_FRAMES} frames)", flush=True)
+    kclip = os.path.join(OUT_DIR, "resume_cli720.mp4")
+    write_synthetic_video(kclip, frames=CLI_KILL_FRAMES, h=H, w=W, n_objects=N_OBJECTS,
+                          fps=LIVE_FPS, seed=12)
+    klog, kwhole, ksnap, kwsnap, saves = (os.path.join(OUT_DIR, n) for n in (
+        "resume_cli.jsonl", "resume_cli_whole.jsonl", "resume_cli.npz",
+        "resume_cli_whole.npz", "resume_cli_saves.json"))
+    _fresh(klog, kwhole, ksnap, kwsnap, saves)
+
+    def cli_cfg(log: str) -> str:
+        path = log[:-len(".jsonl")] + ".yaml"
+        with open(path, "w") as f:
+            json.dump(_merge(_merge(base, chunk_cfg), {
+                "events": {"zones": zones, "alert": {"log_path": log}}}), f)
+        return path
+
+    def argv(log: str, state: str) -> list[str]:
+        return ["-c", cli_cfg(log), "-s", kclip, "--resume-state", state,
+                "--state-interval", str(CLI_KILL_INTERVAL)]
+
+    def finish(proc, what: str) -> dict:
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(stdout[-3000:], "\n", stderr[-3000:], file=sys.stderr)
+            fail(f"{what}: the CLI exited {proc.returncode}")
+        return json.loads(stdout.strip().splitlines()[-1])
+
+    def spawn(args: list[str]):
+        return subprocess.Popen([sys.executable, "-c", _cli_child(args, saves)], cwd=ROOT,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    r = finish(spawn(argv(kwhole, kwsnap)), "uninterrupted CLI")
+    whole_launches = r["k1_launches"]
+    if whole_launches != CLI_KILL_FRAMES // K:
+        fail(f"uninterrupted CLI: K1 launched {whole_launches} times for "
+             f"{CLI_KILL_FRAMES // K} chunks")
+    out["launches"]["resume_cli_whole"] = {"launches": whole_launches,
+                                           "frames": CLI_KILL_FRAMES}
+    _fresh(saves)
+    t_spawn = time.time()
+    proc = spawn(argv(klog, ksnap))
+    deadline = time.perf_counter() + 600
+    while not os.path.exists(ksnap):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            proc.kill()
+            fail("the CLI ended before its first snapshot")
+        time.sleep(0.02)
+    proc.send_signal(signal.SIGKILL)
+    proc.communicate(timeout=60)
+    if proc.returncode != -signal.SIGKILL:
+        fail(f"the killed CLI exited {proc.returncode}, not by SIGKILL")
+    with np.load(ksnap) as z:
+        kmeta = json.loads(str(z["meta"]))
+    at, offset = kmeta["frames_done"], kmeta["events"]["log_offset"]
+    with open(saves) as f:
+        # K1's count when the snapshot that survived the kill was written
+        killed = json.load(f).get(str(at))
+    if killed != at // K:
+        fail(f"the killed CLI's snapshot at frame {at} was written after {killed} K1 "
+             f"launches, not {at // K} (one a chunk, the window drained)")
+    size = os.path.getsize(klog) if os.path.exists(klog) else 0
+    if at >= CLI_KILL_FRAMES or offset > size:
+        fail(f"the kill came too late: snapshot at frame {at}, log offset {offset} of {size}")
+    with open(klog, "ab") as f:      # a consumer drops what follows the snapshot
+        f.truncate(offset)
+    out["launches"]["resume_cli_killed"] = {"launches": killed, "frames": at,
+                                            "note": "at the snapshot that survived"}
+    _fresh(saves)
+    t_restart = time.time()
+    r = finish(spawn(argv(klog, ksnap)), "restarted CLI")
+    if killed + r["k1_launches"] != whole_launches:
+        fail(f"K1 launched {killed} times up to the snapshot and {r['k1_launches']} after "
+             f"the restart, against {whole_launches} in the uninterrupted CLI")
+    out["launches"]["resume_cli_restarted"] = {"launches": r["k1_launches"],
+                                               "frames": CLI_KILL_FRAMES - at}
+    restart_s = r["first_frame"] - t_restart
+    n_ev = _same_events(klog, kwhole, "killed and restarted CLI")
+    with np.load(ksnap) as z:
+        end = json.loads(str(z["meta"]))["frames_done"]
+    if end != CLI_KILL_FRAMES:
+        fail(f"the restarted CLI's last snapshot holds frames_done {end}")
+    out["restart_s"] = restart_s
+    print(f"  killed (SIGKILL) {time.time() - t_spawn:.1f} s after the start, snapshot at "
+          f"frame {at}, log cut at {offset} of {size} bytes; restart to first resumed frame "
+          f"{restart_s:.2f} s (host clock, process start included); {n_ev} events equal to "
+          f"the uninterrupted CLI's", flush=True)
+
+    # (d) several streams: half, then resume; per_stream_frames counts on
+    print(f"  (d) MultiStreamPipeline.run resume: S = {S_STREAMS}, T = {T_MULTI}, "
+          f"{N_MULTI} frames a stream, resume at {N_MULTI // 2}", flush=True)
+    files = [os.path.join(OUT_DIR, f"resume_multi{si}.mp4") for si in range(S_STREAMS)]
+    for si, path in enumerate(files):
+        _write_clip(path, N_MULTI, H, W, 37 * si)
+    mlog, mcut, msnap = (os.path.join(OUT_DIR, n) for n in (
+        "resume_multi_whole.jsonl", "resume_multi_cut.jsonl", "resume_multi.npz"))
+    _fresh(mlog, mcut, msnap)
+    mcfg = {"parallel": {"chunk_size": T_MULTI, "pipeline_depth": MULTI_DEPTH,
+                         "num_streams": S_STREAMS}}
+    m_whole = MultiStreamPipeline(cfg_for(mlog, **mcfg))
+    want, _ = counted("resume_multi_whole", S_STREAMS * N_MULTI, lambda: m_whole.run(files))
+    m1 = MultiStreamPipeline(cfg_for(mcut, **mcfg))
+    counted("resume_multi_first_half", S_STREAMS * N_MULTI // 2, lambda: m1.run(
+        files, max_frames=N_MULTI // 2, state_path=msnap,
+        state_interval=S_STREAMS * T_MULTI * 2))
+    m2 = MultiStreamPipeline(cfg_for(mcut, **mcfg))
+    got, launches = counted("resume_multi_resumed", S_STREAMS * N_MULTI // 2,
+                            lambda: m2.run(files, state_path=msnap))
+    rows = {n: _event_rows(p) for n, p in (("want", mlog), ("got", mcut))}
+    for si in range(S_STREAMS):
+        per = {n: [e for e in r if e["metadata"]["stream"] == si] for n, r in rows.items()}
+        if len(per["got"]) != len(per["want"]) or any(
+                {k: v for k, v in g.items() if k != "bbox_xyxy"}
+                != {k: v for k, v in w.items() if k != "bbox_xyxy"}
+                or np.abs(np.subtract(g["bbox_xyxy"], w["bbox_xyxy"])).max() > RESUME_BOX_TOL
+                for g, w in zip(per["got"], per["want"])):
+            fail(f"multi-stream resume: stream {si}'s events differ")
+    if (got["per_stream_frames"] != [N_MULTI] * S_STREAMS
+            or got["zone_counts"] != want["zone_counts"] or launches == 0):
+        fail(f"multi-stream resume: per_stream_frames {got['per_stream_frames']}, zone counts "
+             f"equal {got['zone_counts'] == want['zone_counts']}, K1 launches {launches}")
+    print(f"  multi-stream resume: per_stream_frames {got['per_stream_frames']}; events per "
+          f"stream equal ({len(rows['want'])} in all)", flush=True)
+
+    # (e) device zone masks on run_chunked
+    print("  (e) run_chunked with events.device_masks", flush=True)
+    mpipe = Pipeline(cfg_for(logs["masks"], **chunk_cfg, events={"device_masks": True}))
+    seen = []
+    inner_mask = mpipe.mask_chunk
+
+    def mask_chunk(boxes):
+        m = inner_mask(boxes)
+        seen.append((boxes.cpu(), m.cpu()))
+        return m
+
+    mpipe.mask_chunk = mask_chunk
+    counted("masks_chunk", RESUME_FRAMES, lambda: mpipe.run_chunked(clip))
+    n_ev = _same_events(logs["masks"], logs["whole"], "device masks")
+    polys = mpipe._mask_polys.cpu()
+    mask_diff = 0
+    for boxes, m in seen:
+        cents = (boxes[..., 0:2] + boxes[..., 2:4]) * 0.5
+        want_m = points_in_polygons(cents.reshape(-1, 2), polys).reshape(m.shape)
+        mask_diff += int((want_m != m).sum())
+    boxes_dev = seen[-1][0].to(DEVICE)
+    mask_ms = cuda_time_ms(lambda: inner_mask(boxes_dev), iters=50)
+    out["mask_ms"] = mask_ms
+    print(f"  device masks: {n_ev} events equal to the host masks' run; masks of {len(seen)} "
+          f"chunks ({tuple(seen[-1][1].shape)}) against points_in_polygons on the CPU: "
+          f"{mask_diff} differ; mask step {mask_ms:.4f} ms per chunk (CUDA events)", flush=True)
+    if mask_diff:
+        fail(f"device masks differ from the CPU's in {mask_diff} places")
+
+    # (f) transports: planes, x6 and x24 give bit-equal tracks; bgr runs
+    print("  (f) transports: planes, x6, x24 (submit_packed_yuv, submit_chunk_packed); "
+          "bgr through run_chunked", flush=True)
+    tpipe = Pipeline(cfg_for(os.path.join(OUT_DIR, "resume_transport.jsonl"), **chunk_cfg))
+    y, u, v = planes
+    results = {}
+    for name, arg in (("planes", (y, u, v)), ("x6", planes_to_x6(y, u, v)),
+                      ("x24", planes_to_x24(y, u, v))):
+        tpipe.reset()
+        results[name], _ = counted(f"transport_{name}", K, lambda arg=arg: tpipe.submit_packed_yuv(
+            arg, H, W))
+    for name in ("x6", "x24"):
+        if not all(torch.equal(a, b) for a, b in zip(results[name][0], results["planes"][0])):
+            fail(f"submit_packed_yuv: the {name} chunk's tracks differ from the planes'")
+    clips = _read_clips(files, T_MULTI)                     # (T, S, H, W, 3)
+    mplanes, _ = pack_chunk(clips.reshape(-1, H, W, 3), SIZE)
+    ts_planes = tuple(p.reshape(T_MULTI, S_STREAMS, *p.shape[1:]) for p in mplanes)
+    x6 = planes_to_x6(*mplanes).reshape(T_MULTI, S_STREAMS, *ts_planes[1].shape[2:], 6)
+    mres = {}
+    for name, arg in (("planes", ts_planes), ("x6", x6)):
+        m2.reset()
+        mres[name], _ = counted(f"transport_multi_{name}", T_MULTI * S_STREAMS,
+                                lambda arg=arg: m2.submit_chunk_packed(arg, H, W))
+    if not all(torch.equal(a, b) for a, b in zip(mres["x6"][0], mres["planes"][0])):
+        fail("submit_chunk_packed: the x6 chunk's tracks differ from the planes'")
+    bpipe = Pipeline(cfg_for(logs["bgr"], **chunk_cfg, parallel={"transport": "bgr"}))
+    bsum, launches = counted("transport_bgr_chunk", RESUME_FRAMES,
+                             lambda: bpipe.run_chunked(clip))
+    st = bpipe.tracker.state
+    vis_end, births = int((st.active & (st.tsu == 0)).sum()), int(st.next_id) - 1
+    n_bgr = len(_event_rows(logs["bgr"]))
+    print(f"  x6 and x24 tracks bit-equal to the planes' ({int(results['planes'][0].visible.sum())}"
+          f" visible slots), multi-stream x6 too; bgr run_chunked {bsum['fps']:.2f} frames/s, "
+          f"{n_bgr} events, {vis_end} visible at the end, {births} ids, K1 launches {launches} "
+          f"for {bsum['chunks']} chunks", flush=True)
+    if launches != bsum["chunks"] or n_bgr == 0 or vis_end < N_OBJECTS // 2:
+        fail(f"bgr transport: K1 {launches} for {bsum['chunks']} chunks, {n_bgr} events, "
+             f"{vis_end} visible")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -1627,13 +2038,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/9 card")
+    phase("1/10 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/9 build kernels (nvcc -> ctypes)")
+    phase("2/10 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -1646,7 +2057,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/9 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/10 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -1669,7 +2080,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/9 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/10 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -1712,7 +2123,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/9 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/10 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -1825,23 +2236,29 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/9 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/10 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/9 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/10 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/9 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/10 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
-    phase("9/9 serving: the web app over a socket, the default build, 8-way concurrency, "
+    phase("9/10 serving: the web app over a socket, the default build, 8-way concurrency, "
           "the MJPEG monitor, run_inference_torch")
     t9 = time.perf_counter()
     serving = serving_paths(smi, live["quality"])
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    phase("10/10 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
+          "zone masks, the x6 / x24 / bgr transports")
+    t10 = time.perf_counter()
+    resume = resume_paths(smi)
+    max_err = max(max_err, float(resume["mismatches"]))
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                **live["launches"], **trackers["launches"], **multi["launches"],
-               **serving["launches"]}
+               **serving["launches"], **resume["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)

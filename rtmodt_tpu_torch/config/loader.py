@@ -175,7 +175,10 @@ class EventsConfig:
     zones: list[ZoneConfig] = field(default_factory=list)
     alert: AlertConfig = field(default_factory=AlertConfig)
     clock: str = "stream"               # stream | wall
-    max_vertices: int = 16
+    max_vertices: int = 16              # polygon padding of the device masks
+    device_masks: bool = False          # zone containment on the device over the
+                                        # chunk's slot boxes (run_chunked); the host
+                                        # engine keeps only dwell/cooldown bookkeeping
 
 
 @dataclass
@@ -209,6 +212,12 @@ class ParallelConfig:
     pipeline_depth: int = 2             # chunks in flight between submit and consume
     chunk_size: int = 1                 # frames per chunk (run_chunked uses >= 2; the
                                         # multi-stream run uses max(2, chunk_size))
+    transport: str = "packed"           # packed | i420: planar I420 to the device;
+                                        # x6 / x24: the loops ship planes too; a
+                                        # chunk pre-packed in that layout
+                                        # (ops/yuv.py::planes_to_x6 / planes_to_x24)
+                                        # is unpacked to planes on the device;
+                                        # bgr: raw frames (run_chunked's escape)
 
 
 @dataclass
@@ -289,8 +298,7 @@ _SUBSECTIONS = {"bytetrack": ByteTrackConfig, "deepsort": DeepSortConfig,
 # Keys of the reference's YAML that mean nothing to the port, with the values
 # it accepts (None: any).  load_config drops them with one log line; any other
 # value raises, since the port would not do what it asks.  topk_impl approx is
-# an exact top-k here, as it is in the reference on a CPU; the port moves
-# planar I420 for either transport.
+# an exact top-k here, as it is in the reference on a CPU.
 _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
     ("system",): {"precision": None, "output_dir": None},
     ("ingestion",): {"buffer_size": None},
@@ -299,10 +307,8 @@ _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
                      "topk_impl": ("exact", "approx"),
                      "quant": ("none",)},          # int8: ROADMAP item 10
     ("tracking", "bytetrack"): {"mot20": None},
-    ("events",): {"device_masks": (False,)},
     ("events", "alert"): {"mqtt_host": None, "mqtt_port": None, "mqtt_topic": None},
-    ("parallel",): {"mesh_axes": None, "donate_state": None,
-                    "transport": ("packed", "i420")},
+    ("parallel",): {"mesh_axes": None, "donate_state": None},
 }
 
 
@@ -437,6 +443,15 @@ def validate(cfg: PipelineConfig) -> None:
     if g.method == "phase" and bt.assignment == "lapjv" and t.algorithm == "bytetrack":
         raise ValueError("tracking.gmc runs on the device tracker state and is not supported "
                          "with the host lapjv backend (assignment: lapjv)")
+    tr = cfg.parallel.transport
+    if tr not in ("packed", "x6", "x24", "i420", "bgr"):
+        raise ValueError(f"parallel.transport must be packed|x6|x24|i420|bgr, got {tr!r}")
+    if tr in ("x6", "x24") and t.algorithm in ("deepsort", "botsort"):
+        raise ValueError(f"parallel.transport={tr} is incompatible with tracking.algorithm="
+                         f"{t.algorithm!r}: appearance trackers need the Y/U/V planes back "
+                         "for ROI embedding crops, which a space-to-depth layout does not "
+                         "carry; use transport=packed (auto-selects planes for appearance "
+                         "trackers) or i420")
     if cfg.parallel.num_streams < 1:
         raise ValueError(f"parallel.num_streams must be >= 1, got {cfg.parallel.num_streams}")
     if cfg.parallel.num_streams > 1 and bt.assignment == "lapjv" and t.algorithm == "bytetrack":

@@ -125,6 +125,44 @@ class ZoneEventEngine:
                    trail_length=trail_length)
 
     # ------------------------------------------------------------------
+    # -- checkpoint / resume (runtime/state_store.py) ---------------------------
+    def state_dict(self) -> dict:
+        """JSON-serialisable engine state: dwell timers, cooldowns, per-zone
+        counts, the chunked path's centroid history, and the event log's size
+        in bytes at this moment (``log_offset``: a downstream consumer tells
+        the events before the snapshot from those after it).  Every event is
+        written with its own open/close, so the size is on disk."""
+        d: dict[str, Any] = {
+            "occupancy": [[int(tid), zn, float(t)]
+                          for tid, occ in self._occupancy.items() for zn, t in occ.items()],
+            "cooldown": [[int(tid), zn, float(t)] for (tid, zn), t in self._cooldown.items()],
+            "counts": {zn: {"entries": int(c["entries"]), "tids": sorted(int(t) for t in c["tids"])}
+                       for zn, c in self._counts.items()},
+            "last_wall_chunk": self._last_wall_chunk,
+            "log_offset": self.log_path.stat().st_size if self.log_path.exists() else 0,
+        }
+        if self._hist is not None:
+            d["hist"] = {"pts": self._hist.tolist(), "len": self._hist_len.tolist(),
+                         "tid": self._hist_tid.tolist()}
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        """Inverse of ``state_dict`` (counts of zones this engine lacks are
+        dropped)."""
+        self._occupancy.clear()
+        for tid, zn, t in d.get("occupancy", []):
+            self._occupancy.setdefault(int(tid), {})[zn] = float(t)
+        self._cooldown = {(int(tid), zn): float(t) for tid, zn, t in d.get("cooldown", [])}
+        for zn, c in d.get("counts", {}).items():
+            if zn in self._counts:
+                self._counts[zn] = {"entries": int(c["entries"]), "tids": set(c["tids"])}
+        self._last_wall_chunk = d.get("last_wall_chunk")
+        h = d.get("hist")
+        if h is not None:
+            self._hist = np.asarray(h["pts"], np.float64)
+            self._hist_len = np.asarray(h["len"], np.int32)
+            self._hist_tid = np.asarray(h["tid"], np.int64)
+
     def process(self, tracks: Sequence, frame_id: int,
                 timestamp: float | None = None,
                 inside_mat: np.ndarray | None = None) -> list[ZoneEvent]:

@@ -9,7 +9,8 @@ update over all S streams at once.  Layouts:
   * ``step(frames (S, H, W, 3))``          - one BGR frame per stream;
   * ``step_chunk(frames (T, S, H, W, 3))`` - T frames per stream, BGR;
   * ``submit_chunk_packed((y, u, v) (T, S, ...), src_h, src_w)`` - planar
-    I420 chunks, the program ``run`` drives.
+    I420 chunks, the program ``run`` drives; or one pre-packed x6 / x24
+    array (T, S, ...) that the device unpacks to planes.
 
 Trackers: ByteTrack (greedy assignment) keeps one S-leading state and
 updates every stream in one batched call (``tracking/bytetrack.py``); OC-SORT,
@@ -22,9 +23,10 @@ stream carries its own previous luma grid and validity flag (``ops/gmc.py``).
 time-aligned (T, S) chunks with ``pipeline_depth`` chunks in flight, one
 ``ZoneEventEngine`` per stream (its events carry ``{"stream": si}``), a
 degraded mode in which a stream that ends or dies is fed blank frames, and an
-optional mosaic of the annotated streams.  Not ported: kill-and-resume
-snapshots and pre-packed x6/x24 chunks (ROADMAP item 9), the MJPEG monitor
-(item 12), several cards.
+optional mosaic of the annotated streams.  With ``state_path`` it writes
+kill-and-resume snapshots (``runtime/state_store.py``) and resumes from one:
+each FILE source drops the frames its stream already consumed.  Not ported:
+several cards (ROADMAP 8c).
 """
 
 from __future__ import annotations
@@ -42,9 +44,7 @@ from rtmodt_tpu_torch.config.loader import PipelineConfig
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
 from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
 from rtmodt_tpu_torch.ops.gmc import init_carry
-from rtmodt_tpu_torch.ops.letterbox import letterbox, letterbox_meta, unletterbox_boxes
-from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
-from rtmodt_tpu_torch.ops.roi import crop_and_resize
+from rtmodt_tpu_torch.ops.nms import NMSResult
 from rtmodt_tpu_torch.ops.yuv import content_dims, pack_chunk, pack_i420_planar
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs, TrackState, init_track_state
@@ -184,27 +184,37 @@ class MultiStreamPipeline:
 
     def reset(self) -> None:
         """Fresh tracker state and GMC carry for every stream."""
-        s, dev = self.num_streams, self.device
-        g = self.cfg.tracking.gmc.grid
         if self._batched:
-            self.state = init_multistream_state(s, self.tracker.cfg.max_tracks, device=dev)
+            self.state = init_multistream_state(self.num_streams, self.tracker.cfg.max_tracks,
+                                                device=self.device)
+        else:
+            self.state = [self.tracker._init_state() for _ in range(self.num_streams)]
+        self._gmc_reset()
+
+    def _gmc_reset(self) -> None:
+        """Every stream's GMC carry back to a zero grid with valid = 0."""
+        s, dev, g = self.num_streams, self.device, self.cfg.tracking.gmc.grid
+        if self._batched:
             self._gmc_carry = init_carry(g, dev, s) if self._gmc_on else None
         else:
-            self.state = [self.tracker._init_state() for _ in range(s)]
             self._gmc_carry = [init_carry(g, dev) if self._gmc_on else None for _ in range(s)]
 
     def warmup(self, shape_hw: tuple[int, int], chunk_size: int = 2) -> None:
         """One chunk of blank frames through the packed program (cuDNN picks
-        its algorithms for the T * S batch), then ``reset``: no phantom
-        tracks and no dummy GMC grid survive it."""
+        its algorithms for the T * S batch), then the tracker state and the
+        GMC carries it found are put back: no phantom tracks and no dummy
+        GMC grid survive it, and a restored state does."""
         h, w = shape_hw
+        # the per-stream trackers' lists are updated in place: keep copies
+        found = tuple(list(x) if isinstance(x, list) else x
+                      for x in (self.state, self._gmc_carry))
         planes, _ = pack_chunk(np.zeros((1, h, w, 3), np.uint8), self.cfg.detection.input_size)
         t, s = max(1, chunk_size), self.num_streams
         self.submit_chunk_packed(tuple(np.ascontiguousarray(
             np.broadcast_to(p[:, None], (t, s, *p.shape[1:]))) for p in planes), h, w)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.reset()
+        self.state, self._gmc_carry = found
 
     # -- the tracker over T frames of S streams ------------------------------
     def _track(self, res: NMSResult, feats: torch.Tensor | None, luma, scale_xy
@@ -241,28 +251,13 @@ class MultiStreamPipeline:
         tracker."""
         t, s, h, w = frames.shape[:4]
         self._check_streams(s)
-        d = self.cfg.detection
-        det = self.detector
         fdev = torch.as_tensor(frames).to(self.device).reshape(t * s, h, w, 3)
-        img, _ = letterbox(fdev, d.input_size, dtype=det.dtype)
-        box_dist, cls_logits = det.model(img.permute(0, 3, 1, 2))
-        res = batched_nms_from_logits(
-            box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
-            d.max_detections, d.nms_candidates, det._class_mask, d.agnostic_nms)
-        feats = None
-        if self._is_appearance:
-            # crops of the letterboxed frames, boxes still in model-input
-            # coordinates (the reference's _frame_body)
-            crops = crop_and_resize(img, res.boxes, tuple(self.tracker.cfg.crop_hw)) * 255.0
-            n = res.boxes.shape[1]
-            feats = _split_ts(self.tracker.embedder(crops.reshape(t * s * n, *crops.shape[2:]))
-                              .reshape(t * s, n, -1), t, s)
-        res = res._replace(boxes=unletterbox_boxes(res.boxes,
-                                                   letterbox_meta(h, w, d.input_size)))
+        res, feats = self._pipe.bgr_detect(fdev)
         res = NMSResult(*(_split_ts(x, t, s) for x in res))
         g = self.cfg.tracking.gmc.grid
         luma = _split_ts(fdev, t, s) if self._gmc_on else None
-        outs = self._track(res, feats, luma, (w / g, h / g))
+        outs = self._track(res, None if feats is None else _split_ts(feats, t, s), luma,
+                           (w / g, h / g))
         return outs, res
 
     def step(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
@@ -276,18 +271,20 @@ class MultiStreamPipeline:
     def submit_chunk_packed(self, planes, src_h: int, src_w: int
                             ) -> tuple[TrackOutputs, NMSResult]:
         """Run one packed chunk: ``planes`` = (y (T, S, ch, cw), u (T, S,
-        ch/2, cw/2), v) uint8 as numpy arrays or tensors.  The single-stream
-        packed program's stages (``Pipeline.packed_detect``: planar
-        letterbox, forward, K1, crops + embedder, half-res GMC grids) over
-        the T * S frames, then the tracker T times.  Returns the device
+        ch/2, cw/2), v) uint8 as numpy arrays or tensors, or one pre-packed
+        x6 (T, S, ch/2, cw/2, 6) or x24 (T, S, ch/4, cw/4, 24) array held to
+        the transport's level as in ``Pipeline.submit_packed_yuv``.  The
+        single-stream packed program's stages (``Pipeline.packed_detect``:
+        planar letterbox, forward, K1, crops + embedder, half-res GMC grids)
+        over the T * S frames, then the tracker T times.  Returns the device
         (TrackOutputs, NMSResult), (T, S) leading."""
-        if isinstance(planes, np.ndarray):
-            raise ValueError("pre-packed x6/x24 chunks are not ported (ROADMAP item 9); "
-                             "submit the (y, u, v) planes")
-        y, u, v = planes
-        t, s = y.shape[:2]
+        if isinstance(planes, (np.ndarray, torch.Tensor)):
+            t, s = planes.shape[:2]
+            flat = planes.reshape(t * s, *planes.shape[2:])
+        else:
+            t, s = planes[0].shape[:2]
+            flat = tuple(p.reshape(t * s, *p.shape[2:]) for p in planes)
         self._check_streams(s)
-        flat = tuple(p.reshape(t * s, *p.shape[2:]) for p in (y, u, v))
         res, feats, grids, scale = self._pipe.packed_detect(flat, src_h, src_w)
         res = NMSResult(*(_split_ts(x, t, s) for x in res))
         outs = self._track(res, None if feats is None else _split_ts(feats, t, s),
@@ -298,7 +295,7 @@ class MultiStreamPipeline:
     # -- the multi-camera loop -------------------------------------------------
     def run(self, sources: list, max_frames: int | None = None,
             chunk_size: int | None = None, display: bool = False,
-            state_path: str | None = None) -> dict:
+            state_path: str | None = None, state_interval: int = 300) -> dict:
         """Detect, track and raise zone events on S sources (video paths,
         RTSP URLs or webcam indices; one per stream, sharing one resolution)
         until every stream has ended, or ``max_frames`` frames per stream
@@ -309,10 +306,16 @@ class MultiStreamPipeline:
         continued; it is listed in ``dead_streams``.  Returns a summary:
         ``frames``, ``streams``, ``fps_aggregate``, ``fps_per_stream``,
         ``per_stream_frames``, ``dead_streams`` and, with events on,
-        ``zone_counts`` per stream."""
-        if state_path:
-            raise ValueError("multi-stream kill-and-resume snapshots are not ported: "
-                             "ROADMAP item 9")
+        ``zone_counts`` per stream.
+
+        ``state_path`` enables kill-and-resume snapshots: one after every
+        ``state_interval`` frames of all streams (the window drained first)
+        and at clean exit.  Where the snapshot exists at start it is
+        restored before the ingest threads start: each FILE source drops the
+        frames its stream consumed before (live sources continue from their
+        current frame), ``per_stream_frames`` counts on from the snapshot's,
+        and a stream that had ended stays dead and is fed blank frames, as it
+        would be in an uninterrupted run."""
         s_streams = self.num_streams
         if len(sources) != s_streams:
             raise ValueError(f"{len(sources)} sources for {s_streams} streams")
@@ -328,6 +331,16 @@ class MultiStreamPipeline:
                        for _ in range(s_streams)]
             for si, eng in enumerate(engines):
                 eng.extra_metadata = {"stream": si}
+        # kill-and-resume: restore the state before the ingest threads start,
+        # so that each file source knows how many frames to drop
+        resume = None
+        if state_path and os.path.exists(state_path):
+            from rtmodt_tpu_torch.runtime.state_store import load_multistream_snapshot
+
+            resume = load_multistream_snapshot(state_path, self, engines)
+        skip_frames = ([int(n) for n in resume["per_stream_frames"]] if resume
+                       else [0] * s_streams)
+        dead = [bool(d) for d in resume["dead"]] if resume else [False] * s_streams
         # the annotated mosaic (window, video file and/or MJPEG monitor) is
         # opt-in: the headless loop keeps no BGR frame on the host
         render_on = display or vcfg.save_video or vcfg.mjpeg_port is not None
@@ -342,7 +355,10 @@ class MultiStreamPipeline:
 
         qs: list[queue.Queue] = [queue.Queue(maxsize=3 * t_chunk) for _ in range(s_streams)]
         stop = threading.Event()
-        fps_by_stream = [30.0] * s_streams
+        # a dead stream's blank frames keep its rate, which its reader gave
+        # before the snapshot
+        fps_by_stream = [float(f) for f in resume.get("fps", [30.0] * s_streams)] if resume \
+            else [30.0] * s_streams
 
         def put(si: int, item) -> None:
             """Bounded put on stream si's queue that gives up once ``stop``
@@ -365,6 +381,18 @@ class MultiStreamPipeline:
                     if rd.fps and rd.fps > 0:
                         fps_by_stream[si] = float(rd.fps)
                     last_id = 0
+                    # resume fast-forward: decode and drop the frames an earlier
+                    # run consumed, so the stream clock continues exactly; file
+                    # sources only (a live source resumes at its current frame)
+                    dropped = 0
+                    while dropped < skip_frames[si] and rd._is_file and not stop.is_set():
+                        frame, fid, _ = rd.read_new(last_id, timeout=2.0)
+                        if frame is None:
+                            if rd.is_eof:
+                                break
+                            continue
+                        last_id = fid
+                        dropped += 1
                     while not stop.is_set():
                         frame, fid, ts = rd.read_new(last_id, timeout=2.0)
                         if frame is None:
@@ -381,9 +409,11 @@ class MultiStreamPipeline:
             # end only after a 2 s get timeout per stream
             put(si, None)
 
-        workers = [threading.Thread(target=ingest, args=(si,), daemon=True,
-                                    name=f"rtmodt-ingest-{si}") for si in range(s_streams)]
-        for wk in workers:
+        # a stream that was dead at the snapshot gets no reader
+        workers = {si: threading.Thread(target=ingest, args=(si,), daemon=True,
+                                        name=f"rtmodt-ingest-{si}")
+                   for si in range(s_streams) if not dead[si]}
+        for wk in workers.values():
             wk.start()
 
         inflight: deque = deque()
@@ -430,9 +460,28 @@ class MultiStreamPipeline:
                         return False
             return True
 
-        dead = [False] * s_streams
-        last_meta = [(0, 0.0)] * s_streams   # per-stream (fid, ts), continued by blanks
-        per_stream_frames = [0] * s_streams
+        # per-stream (fid, ts), continued by blanks; per_stream_frames counts
+        # across restarts, so the next snapshot's fast-forward covers them all
+        last_meta = ([(int(f), float(t)) for f, t in resume["last_meta"]] if resume
+                     else [(0, 0.0)] * s_streams)
+        per_stream_frames = list(skip_frames)
+        last_snap = sum(per_stream_frames)
+        aborted = False
+
+        def drain() -> bool:
+            while inflight:
+                if not consume(inflight.popleft()):
+                    inflight.clear()
+                    return False
+            return True
+
+        def snapshot() -> None:
+            from rtmodt_tpu_torch.runtime.state_store import save_multistream_snapshot
+
+            save_multistream_snapshot(state_path, self, engines,
+                                      per_stream_frames=per_stream_frames,
+                                      last_meta=last_meta, dead=dead, fps=fps_by_stream)
+
         try:
             while True:
                 if max_frames and n_chunks * t_chunk >= max_frames:
@@ -492,10 +541,19 @@ class MultiStreamPipeline:
                     t_start = time.perf_counter()
                 if len(inflight) > depth and not consume(inflight.popleft()):
                     inflight.clear()
+                    aborted = True
                     break
-            while inflight:
-                if not consume(inflight.popleft()):
-                    break
+                if state_path and sum(per_stream_frames) - last_snap >= state_interval:
+                    # drain first: the tracker state (updated at submit) and the
+                    # engines (updated at consume) must describe the same frames
+                    if not drain():
+                        aborted = True
+                        break
+                    snapshot()
+                    last_snap = sum(per_stream_frames)
+            aborted = not drain() or aborted
+            if state_path and not aborted and t_start is not None:
+                snapshot()   # the clean-exit snapshot covers the whole run
         finally:
             stop.set()
             for q in qs:   # unblock a producer stuck on a full queue
@@ -503,7 +561,7 @@ class MultiStreamPipeline:
                     q.get_nowait()
                 except queue.Empty:
                     pass
-            for wk in workers:
+            for wk in workers.values():
                 wk.join(timeout=5.0)
             if monitor is not None:
                 monitor.close()

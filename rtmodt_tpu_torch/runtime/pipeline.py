@@ -32,8 +32,20 @@ either ``per_stage`` setting, and ``run`` always takes that path (as the
 reference does); ``step_packed`` and ``run_chunked`` refuse it.
 
 The GMC carry (the previous frame's luma grid and a validity flag) lives
-across frames and chunks; ``reset`` and ``warmup`` clear it, so dummy frames
-never shift the first real one.
+across frames and chunks; ``reset`` clears it.  ``warmup`` puts back the
+tracker state, the trails and the carry it found, so dummy frames neither
+leave phantom tracks nor shift the first real frame, and a state restored
+from a snapshot survives it.
+
+Kill-and-resume: ``run`` and ``run_chunked`` take ``state_path`` (write a
+snapshot every ``state_interval`` consumed frames, at a drained window, and
+at clean exit; ``runtime/state_store.py``) and ``skip_frames`` (the frames of
+a FILE source a resumed run drops first, as ``load_runtime_state`` returns
+them).  Transports of the chunked path (``parallel.transport``): planar I420
+(``packed``, ``i420``, and ``x6`` / ``x24``, whose link bytes equal the
+planes', so the planes ship for them too), or ``bgr`` frames through
+``submit_chunk``.  With ``events.device_masks`` the zone containment of each
+chunk's slot boxes runs on the device (``ops/polygon.py``).
 
 Frames come from the port's ``RTSPReader``: ids count from 1, file frames
 carry their stream time, live sources keep only the newest frame.
@@ -56,11 +68,15 @@ from rtmodt_tpu_torch.device import config_device, resolve_device
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
 from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
 from rtmodt_tpu_torch.ops.gmc import gmc_step, half_res_luma, init_carry, luma_grids
-from rtmodt_tpu_torch.ops.letterbox import LetterboxMeta
+from rtmodt_tpu_torch.ops.letterbox import (LetterboxMeta, letterbox, letterbox_meta,
+                                            unletterbox_boxes)
 from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
-from rtmodt_tpu_torch.ops.roi import crop_yuv_rgb
-from rtmodt_tpu_torch.ops.yuv import (content_dims, pack_chunk, packed_meta, pad_planes,
-                                      planar_letterbox, unletterbox_boxes_packed)
+from rtmodt_tpu_torch.ops.polygon import pad_polygons, points_in_polygons
+from rtmodt_tpu_torch.ops.roi import crop_and_resize, crop_yuv_rgb
+from rtmodt_tpu_torch.ops.yuv import (check_prepacked, content_dims, pack_chunk, packed_meta,
+                                      pad_planes, planar_letterbox, s2d_level,
+                                      s2d_to_planes,
+                                      unletterbox_boxes_packed)
 from rtmodt_tpu_torch.profiling.latency_profiler import LatencyProfiler
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
@@ -83,10 +99,11 @@ def _reader_frames(reader: RTSPReader) -> Iterator[tuple[np.ndarray, int, float]
 
 
 class _Slot:
-    """Host buffers of one in-flight chunk: packed input planes and the
-    fetched track outputs, pinned on the card's host."""
+    """Host buffers of one in-flight chunk, pinned on the card's host: the
+    packed input planes, the fetched track outputs and, with ``zones`` > 0,
+    the device zone masks."""
 
-    def __init__(self, k: int, ch: int, cw: int, s: int, pin: bool):
+    def __init__(self, k: int, ch: int, cw: int, s: int, pin: bool, zones: int = 0):
         def buf(shape, dtype):
             return torch.empty(shape, dtype=dtype, pin_memory=pin)
 
@@ -99,6 +116,7 @@ class _Slot:
             class_id=buf((k, s), torch.int32), confidence=buf((k, s), torch.float32),
             age=buf((k, s), torch.int32), tsu=buf((k, s), torch.int32),
             visible=buf((k, s), torch.bool))
+        self.inside = buf((k, s, zones), torch.bool) if zones else None
 
 
 class Pipeline:
@@ -142,6 +160,13 @@ class Pipeline:
         ev = self.cfg.events
         self.events = (ZoneEventEngine.from_config(ev, trail_length=self.cfg.tracking.trail_length)
                        if ev.enabled and ev.zones else None)
+        # events.device_masks: the zones padded to (Z, max_vertices, 2) on the
+        # device, for mask_chunk
+        self._mask_polys = None
+        if self.events is not None and ev.device_masks:
+            self._mask_polys = torch.from_numpy(pad_polygons(
+                [z.polygon.tolist() for z in self.events.zones], ev.max_vertices)
+            ).to(self.device)
         pc = self.cfg.profiling
         self.profiler = LatencyProfiler(enabled=pc.enabled, warmup_frames=pc.warmup_frames,
                                         log_interval=pc.log_interval)
@@ -198,6 +223,38 @@ class Pipeline:
         return self.tracker.embedder(crops.reshape(k * n, *crops.shape[2:])).reshape(k, n, -1)
 
     @torch.no_grad()
+    def bgr_detect(self, frames: torch.Tensor) -> tuple[NMSResult, torch.Tensor | None]:
+        """Device BGR frames (N, H, W, 3) uint8 -> (detections in source
+        coordinates, appearance embeddings (N, D, E) or None): the batched
+        BGR letterbox, the forward and NMS (K1 at B = N) over the N frames;
+        the crops come from the letterboxed frames (the reference's fused
+        BGR programs)."""
+        d = self.cfg.detection
+        det = self.detector
+        n, h, w = frames.shape[:3]
+        img, _ = letterbox(frames, d.input_size, dtype=det.dtype)
+        box_dist, cls_logits = det.model(img.permute(0, 3, 1, 2))
+        res = batched_nms_from_logits(
+            box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
+            d.max_detections, d.nms_candidates, det._class_mask, d.agnostic_nms)
+        feats = None
+        if self._is_appearance:
+            crops = crop_and_resize(img, res.boxes, tuple(self.tracker.cfg.crop_hw)) * 255.0
+            m = res.boxes.shape[1]
+            feats = self.tracker.embedder(crops.reshape(n * m, *crops.shape[2:])).reshape(n, m, -1)
+        res = res._replace(boxes=unletterbox_boxes(res.boxes, letterbox_meta(h, w, d.input_size)))
+        return res, feats
+
+    @torch.no_grad()
+    def mask_chunk(self, boxes: torch.Tensor) -> torch.Tensor:
+        """``events.device_masks``: slot boxes (..., S, 4) -> (..., S, Z) bool,
+        each slot box's centre in each zone (even-odd rule, on the boxes'
+        device)."""
+        cents = (boxes[..., 0:2] + boxes[..., 2:4]) * 0.5
+        inside = points_in_polygons(cents.reshape(-1, 2), self._mask_polys)
+        return inside.reshape(*cents.shape[:-1], self._mask_polys.shape[0])
+
+    @torch.no_grad()
     def track_chunk(self, res: NMSResult, feats: torch.Tensor | None = None,
                     grids: torch.Tensor | None = None,
                     scale_xy: tuple[float, float] = (1.0, 1.0)) -> TrackOutputs:
@@ -217,11 +274,17 @@ class Pipeline:
         """The per-frame half of the packed program, batched over the K
         frames of ``planes`` (numpy arrays or tensors): detections in source
         coordinates, the appearance embeddings (deepsort / botsort) and the
-        GMC luma grids with their grid-to-source scale.  Returns (res, feats
-        or None, grids or None, scale_xy)."""
+        GMC luma grids with their grid-to-source scale.  ``planes`` is (y, u,
+        v), or one pre-packed x6 / x24 array that the device unpacks to them
+        (``check_prepacked`` holds it to the transport's level first).
+        Returns (res, feats or None, grids or None, scale_xy)."""
         size = self.cfg.detection.input_size
         meta = packed_meta(src_h, src_w, size)
         ch, cw = content_dims(src_h, src_w, size)
+        if isinstance(planes, (np.ndarray, torch.Tensor)):
+            check_prepacked(planes, self.cfg.parallel.transport, src_h, src_w, size,
+                            self._is_appearance)
+            planes = s2d_to_planes(torch.as_tensor(planes).to(self.device, non_blocking=True))
         y, u, v = (torch.as_tensor(p).to(self.device, non_blocking=True) for p in planes)
         if tuple(y.shape[1:]) != (ch, cw):
             raise ValueError(f"Y planes are {tuple(y.shape[1:])}, expected {(ch, cw)} "
@@ -248,21 +311,67 @@ class Pipeline:
     def submit_packed_yuv(self, planes, src_h: int, src_w: int
                           ) -> tuple[TrackOutputs, NMSResult]:
         """Run one chunk: ``planes`` = (y (K, ch, cw), u, v) uint8 as numpy
-        arrays or tensors (pinned host tensors copy without blocking).
-        Returns the device (TrackOutputs, NMSResult), K leading."""
+        arrays or tensors (pinned host tensors copy without blocking), or the
+        pre-packed space-to-depth array of an s2d transport, (K, ch/2, cw/2,
+        6) x6 or (K, ch/4, cw/4, 24) x24 (``ops/yuv.py::planes_to_x6`` /
+        ``planes_to_x24``), whose channel count must match the level
+        ``s2d_level`` allows for this geometry.  Returns the device
+        (TrackOutputs, NMSResult), K leading."""
         out = self._packed_program(planes, src_h, src_w)
         self.chunks_submitted += 1
         return out
 
+    @torch.no_grad()
+    def submit_chunk(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
+        """Run one chunk of BGR frames (K, H, W, 3) uint8 (``transport:
+        bgr``): the batched BGR letterbox, the forward, K1 at B = K, then GMC
+        on the full-resolution frames and the tracker K times.  Returns the
+        device (TrackOutputs, NMSResult), K leading."""
+        self._refuse_host_tracker("submit_chunk")
+        k, h, w = frames.shape[:3]
+        fdev = torch.as_tensor(frames).to(self.device)
+        res, feats = self.bgr_detect(fdev)
+        g = self.cfg.tracking.gmc.grid
+        outs = self.track_chunk(res, feats, fdev if self._gmc_on else None, (w / g, h / g))
+        self.chunks_submitted += 1
+        return outs, res
+
+    # -- kill-and-resume ---------------------------------------------------------
+    def save_runtime_state(self, path: str, frames_done: int = 0, last_ts: float = 0.0) -> None:
+        """Snapshot the tracker, the zone engine and the GMC carry
+        (``runtime/state_store.py``).  Call only with no frame in flight:
+        the tracker state must describe exactly ``frames_done`` frames."""
+        from rtmodt_tpu_torch.runtime.state_store import save_snapshot
+
+        save_snapshot(path, self.tracker, self.events, frames_done=frames_done,
+                      last_ts=last_ts, gmc_carry=self._gmc_carry)
+
+    def load_runtime_state(self, path: str) -> int:
+        """Restore a snapshot; returns its ``frames_done``, the frames a
+        resumed run over the same FILE passes as ``skip_frames``."""
+        from rtmodt_tpu_torch.runtime.state_store import load_snapshot
+
+        meta = load_snapshot(path, self.tracker, self.events, gmc_carry=self._gmc_carry)
+        if self._gmc_on:
+            if meta.get("gmc_carry") is not None:
+                self._gmc_carry = meta["gmc_carry"]
+            else:
+                self._gmc_reset()
+        return int(meta["frames_done"])
+
     # -- the per-frame paths -------------------------------------------------
     def warmup(self, shape_hw: tuple[int, int], iters: int = 3) -> None:
         """Run the stages of the configured per-frame path on a dummy frame
-        (cuDNN picks its algorithms, the allocator fills its pools), then
-        reset the tracker and the GMC carry: warmup must not leave phantom
-        tracks behind, nor a dummy grid that would shift the first frame."""
+        (cuDNN picks its algorithms, the allocator fills its pools), then put
+        back the tracker state and the GMC carry it found (it touches no
+        trail): warmup leaves no phantom tracks and no dummy grid that would
+        shift the first frame, and a state restored from a snapshot survives
+        it (the reference resets to a fresh state here, which wipes a
+        restored one on its per-frame paths)."""
         h, w = shape_hw
         dummy = np.zeros((h, w, 3), np.uint8)
         t0 = time.perf_counter()
+        found = (self.tracker.state, self._gmc_carry)
         with torch.no_grad():
             for _ in range(iters):
                 if self._per_stage or self._host_tracker:
@@ -278,8 +387,7 @@ class Pipeline:
                     self._packed_program(planes, h, w)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.tracker.reset()
-        self._gmc_reset()
+        self.tracker.state, self._gmc_carry = found
         logger.info(f"pipeline warmup {w}x{h} done in {time.perf_counter() - t0:.1f}s")
 
     @torch.no_grad()
@@ -384,18 +492,28 @@ class Pipeline:
 
     # -- the CLI loop ----------------------------------------------------------
     def run(self, source: str | int | None = None, display: bool = False,
-            max_frames: int | None = None) -> dict[str, float]:
+            max_frames: int | None = None, state_path: str | None = None,
+            state_interval: int = 300, skip_frames: int = 0) -> dict[str, float]:
         """The full CLI loop over ``source`` (a video path, RTSP URL or webcam
         index; default ``ingestion.source``): detect, track, raise zone
         events, render, display and save the annotated video as configured;
         with ``visualization.mjpeg_port`` set, a ``LiveMonitor`` serves the
         annotated frames as MJPEG for the length of the run.  ``max_frames``
-        of 0 or None means no limit.  Returns the profiler's summary."""
+        of 0 or None means no limit.
+
+        ``state_path`` enables kill-and-resume snapshots: written every
+        ``state_interval`` consumed frames (the window drained first) and at
+        clean exit.  A resumed run restores the snapshot first
+        (``load_runtime_state``) and passes its ``frames_done`` as
+        ``skip_frames``: a FILE source drops that many frames before the first
+        one it processes; a live source continues from its current frame.
+        Returns the profiler's summary."""
         vcfg = self.cfg.visualization
         if (self.cfg.parallel.chunk_size > 1 and not display and not vcfg.save_video
                 and self.renderer is None and not self._per_stage
                 and not self._host_tracker):
-            return self.run_chunked(source, max_frames)
+            return self.run_chunked(source, max_frames, state_path=state_path,
+                                    state_interval=state_interval, skip_frames=skip_frames)
         import cv2
 
         reader = self._reader(source)
@@ -410,13 +528,16 @@ class Pipeline:
         per_frame_step = self._per_stage or self._host_tracker
         depth = 0 if per_frame_step else max(0, self.cfg.parallel.pipeline_depth)
         inflight: deque = deque()
-        frames = 0
+        frames = skipped = consumed = snaps_done = 0
+        last_ts = 0.0
         p = self.profiler
         warmed = False
 
-        def finish(frame: np.ndarray, tracks: list) -> bool:
+        def finish(frame: np.ndarray, tracks: list, ts: float) -> bool:
             """Render, write and show one frame; False when the user quits."""
-            nonlocal writer
+            nonlocal writer, consumed, last_ts
+            consumed += 1
+            last_ts = float(ts)
             if self.renderer is not None:
                 p.tick("visualization")
                 self.renderer.render(frame, tracks, zones, fps=p.current_fps,
@@ -449,7 +570,13 @@ class Pipeline:
             if self.events:
                 self.events.process(tracks, fid, ts)
             p.tock("events")
-            return finish(frame, tracks)
+            return finish(frame, tracks, ts)
+
+        def drain() -> bool:
+            while inflight:
+                if not consume(inflight.popleft()):
+                    return False
+            return True
 
         try:
             with reader:
@@ -462,6 +589,12 @@ class Pipeline:
                         logger.info("end of stream")
                         break
                     frame, fid, ts = item
+                    if skipped < skip_frames and reader._is_file:
+                        # resume fast-forward: the run that wrote the snapshot
+                        # consumed these; dropping them keeps the file's stream
+                        # clock in line with the restored dwell timers
+                        skipped += 1
+                        continue
                     if not warmed:
                         self.warmup(frame.shape[:2])
                         warmed = True
@@ -478,14 +611,22 @@ class Pipeline:
                     else:
                         tracks, _, _ = (self.step(frame, fid, ts) if per_frame_step
                                         else self.step_packed(frame, fid, ts))
-                        if not finish(frame, tracks):
+                        if not finish(frame, tracks, ts):
                             break
                     frames += 1
+                    if state_path and consumed // state_interval > snaps_done:
+                        # drain first: the snapshot's tracker state must
+                        # describe exactly the consumed frames
+                        ok = drain()
+                        self.save_runtime_state(state_path, skipped + consumed, last_ts)
+                        snaps_done = consumed // state_interval
+                        if not ok:
+                            break
                     if max_frames and frames >= max_frames:
                         break
-                while inflight:  # drain the pipeline window
-                    if not consume(inflight.popleft()):
-                        break
+                drain()
+                if state_path:
+                    self.save_runtime_state(state_path, skipped + consumed, last_ts)
         except KeyboardInterrupt:
             logger.info("interrupted")
         finally:
@@ -500,7 +641,9 @@ class Pipeline:
 
     # -- the throughput loop ----------------------------------------------
     def run_chunked(self, source: Iterable[np.ndarray] | str | int | None = None,
-                    max_frames: int | None = None, fps: float = 30.0) -> dict[str, float]:
+                    max_frames: int | None = None, fps: float = 30.0,
+                    state_path: str | None = None, state_interval: int = 300,
+                    skip_frames: int = 0) -> dict[str, float]:
         """Detect, track and raise zone events for every frame of ``source``
         in chunks of ``parallel.chunk_size`` (at least 2) with
         ``parallel.pipeline_depth`` chunks in flight.
@@ -509,22 +652,37 @@ class Pipeline:
         ``ingestion.source``), read through ``RTSPReader`` with its frame ids
         and stream timestamps; or an iterable of BGR frames, whose frame ids
         count from 1 and whose stream time is (id - 1) / ``fps``.
-        ``max_frames`` of 0 or None means no limit.  Returns the profiler's
-        summary with ``frames``, ``chunks``, ``seconds`` and ``fps``."""
+        ``max_frames`` of 0 or None means no limit.
+
+        ``state_path``, ``state_interval`` and ``skip_frames`` as in ``run``:
+        a snapshot every ``state_interval`` consumed frames (the window
+        drained first) and at clean exit.  An iterable of frames is a
+        recording, like a file: its first ``skip_frames`` frames are dropped
+        and ids and stream time still count from its first frame.  A padded
+        final chunk is part of the clean-exit snapshot, as in the reference:
+        the tracker has seen the copies of the last frame.
+
+        Returns the profiler's summary with ``frames``, ``chunks``,
+        ``seconds`` and ``fps``."""
         self._refuse_host_tracker("run_chunked")
         k = max(2, self.cfg.parallel.chunk_size)
         depth = max(0, self.cfg.parallel.pipeline_depth)
         size = self.cfg.detection.input_size
         s = self.tracker.cfg.max_tracks
         pin = self.device.type == "cuda"
+        transport = self.cfg.parallel.transport
+        # bgr ships frames; the appearance trackers' crops need the planes
+        use_bgr = transport == "bgr" and not self._is_appearance
+        zones = 0 if self._mask_polys is None else self._mask_polys.shape[0]
         p = self.profiler
         slots: list[_Slot] = []
         inflight: deque = deque()
         done = chunks = 0
+        last_ts = 0.0
         t0 = time.perf_counter()
 
         def consume(entry) -> None:
-            nonlocal done
+            nonlocal done, last_ts
             metas, slot, ready = entry
             if ready is not None:
                 ready.synchronize()
@@ -535,27 +693,38 @@ class Pipeline:
                     o.track_id.numpy()[:n], o.class_id.numpy()[:n],
                     o.boxes.numpy()[:n], o.visible.numpy()[:n],
                     [m[0] for m in metas], np.asarray([m[1] for m in metas], np.float64),
+                    inside=None if slot.inside is None else slot.inside.numpy()[:n],
                     class_names=self.detector.class_names)
             for _ in metas:
                 p.end_frame()
             done += n
+            last_ts = float(metas[-1][1])
 
         def submit(frames: list[np.ndarray], metas: list) -> None:
             nonlocal chunks
             h, w = frames[0].shape[:2]
             if not slots:
                 ch, cw = content_dims(h, w, size)
-                slots.extend(_Slot(k, ch, cw, s, pin) for _ in range(depth + 1))
+                if transport in ("x6", "x24"):
+                    # x24 pinned on a geometry it cannot block raises; the
+                    # planes ship, as their bytes equal the s2d layout's
+                    s2d_level(transport, h, w, size)
+                slots.extend(_Slot(k, ch, cw, s, pin, zones) for _ in range(depth + 1))
             # the slot's previous chunk was consumed (at most `depth` stay in
             # flight), so its host buffers are free to overwrite
             slot = slots[chunks % len(slots)]
             chunks += 1
             p.tick("inference")
             batch = np.stack(frames + [frames[-1]] * (k - len(frames)))
-            pack_chunk(batch, size, out=slot.planes)
-            outs, _ = self.submit_packed_yuv(slot.planes_t, h, w)
+            if use_bgr:
+                outs, _ = self.submit_chunk(batch)
+            else:
+                pack_chunk(batch, size, out=slot.planes)
+                outs, _ = self.submit_packed_yuv(slot.planes_t, h, w)
             for dst, src in zip(slot.out, outs):
                 dst.copy_(src, non_blocking=pin)
+            if slot.inside is not None:
+                slot.inside.copy_(self.mask_chunk(outs.boxes), non_blocking=pin)
             ready = None
             if pin:
                 ready = torch.cuda.Event()
@@ -567,19 +736,32 @@ class Pipeline:
 
         live = source is None or isinstance(source, (str, int))
         reader = self._reader(source) if live else None
+        skipped = snaps_done = 0
         with reader if reader is not None else contextlib.nullcontext():
             stream = (_reader_frames(reader) if reader is not None else
                       ((frame, i + 1, i / fps) for i, frame in enumerate(source)))
+            droppable = reader is None or reader._is_file
             buf: list[np.ndarray] = []
             metas: list = []
             read = 0
             for frame, fid, ts in stream:
+                if skipped < skip_frames and droppable:
+                    # resume fast-forward (see run)
+                    skipped += 1
+                    continue
                 buf.append(frame)
                 metas.append((fid, ts))
                 read += 1
                 if len(buf) == k:
                     submit(buf, metas)
                     buf, metas = [], []
+                    if state_path and done // state_interval > snaps_done:
+                        # drain first: the snapshot must describe a tracker
+                        # that has seen exactly `done` frames
+                        while inflight:
+                            consume(inflight.popleft())
+                        self.save_runtime_state(state_path, skipped + done, last_ts)
+                        snaps_done = done // state_interval
                 if max_frames and read >= max_frames:
                     break
             if buf:
@@ -588,6 +770,8 @@ class Pipeline:
                 submit(buf, metas)
             while inflight:
                 consume(inflight.popleft())
+        if state_path:
+            self.save_runtime_state(state_path, skipped + done, last_ts)
         seconds = time.perf_counter() - t0
         logger.info(f"chunked run processed {done} frames in {seconds:.2f} s")
         p.print_summary()

@@ -16,7 +16,10 @@ centroid trails capped at ``trail_length`` and pruned of ids long gone.
   * ``tracking.gmc.method: phase`` shifts the device state by the camera
     motion estimated from consecutive frames before each update.
 
-State save and load is not ported (ROADMAP item 9).
+``state_arrays`` / ``load_state_arrays`` (and ``save_state`` / ``load_state``
+on an ``.npz``) move the device state and the trails to and from host numpy
+arrays under the reference's field names and dtypes, so a snapshot of either
+package loads into the other (``runtime/state_store.py``).
 """
 
 from __future__ import annotations
@@ -215,6 +218,52 @@ class MultiObjectTracker:
             self._host._tracks.clear()
             self._host._next_id = 1
         self.state = self._init_state()
+
+    # -- state save / load (kill-and-resume, runtime/state_store.py) -------------
+    def state_arrays(self) -> dict[str, np.ndarray]:
+        """The tracker state as a flat dict of host numpy arrays: every field
+        of the state tuple, ``trail_ids`` (N,) int64 and ``trail_data`` (N,
+        trail_length, 2) int64 padded with (-1, -1)."""
+        if self._host is not None:
+            raise NotImplementedError("host-tracker state save not supported")
+        out = {k: v.detach().cpu().numpy() for k, v in self.state._asdict().items()}
+        n = len(self._trail_map)
+        data = np.asarray([t + [(-1, -1)] * (self._trail_maxlen - len(t))
+                           for t in self._trail_map.values()], np.int64)
+        out["trail_ids"] = np.asarray(list(self._trail_map.keys()), np.int64)
+        out["trail_data"] = data.reshape(n, self._trail_maxlen if n else 0, 2)
+        return out
+
+    def load_state_arrays(self, z) -> None:
+        """Inverse of ``state_arrays``; ``z`` is any mapping of arrays (an open
+        ``np.load`` handle or a dict).  Refuses a field whose shape or dtype
+        differs from this tracker's (another ``max_tracks``, ``embed_dim`` or
+        ``delta_t``) before changing anything."""
+        if self._host is not None:
+            raise NotImplementedError("host-tracker state load not supported")
+        cur = self.state._asdict()
+        fields = {}
+        for k, t in cur.items():
+            arr = np.asarray(z[k])
+            want = (tuple(t.shape), t.cpu().numpy().dtype)
+            if (arr.shape, arr.dtype) != want:
+                raise ValueError(f"snapshot field {k!r} is {arr.shape}/{arr.dtype}; this "
+                                 f"tracker expects {want[0]}/{want[1]} (max_tracks / "
+                                 "embed_dim config mismatch?)")
+            fields[k] = torch.from_numpy(arr.copy()).to(self.device)
+        self.state = type(self.state)(**fields)
+        self._trail_map.clear()
+        self._trail_seen.clear()
+        for tid, trail in zip(z["trail_ids"], z["trail_data"]):
+            self._trail_map[int(tid)] = [(int(x), int(y)) for x, y in trail if x >= 0]
+            self._trail_seen[int(tid)] = self._frame_count
+
+    def save_state(self, path: str) -> None:
+        np.savez(path, **self.state_arrays())
+
+    def load_state(self, path: str) -> None:
+        with np.load(path) as z:
+            self.load_state_arrays(z)
 
     @torch.no_grad()
     def step(self, boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,

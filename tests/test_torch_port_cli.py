@@ -6,8 +6,8 @@ Both run as subprocesses on one YAML (``system.device: cpu``,
 path) and one 25-fps clip, with the trained rich640d weights at 256 px in
 float32.  Both must exit 0, print the final profile with the zone counts,
 and write the same events: identical less the wall-clock ``timestamp_utc``,
-``bbox_xyxy`` within 1e-4 px.  The flags that are not ported must exit
-non-zero and name the ROADMAP item that will bring them.
+``bbox_xyxy`` within 1e-4 px.  ``--resume-state`` writes a snapshot and a
+second run advances it, with one and with several ``-s``.
 """
 
 from __future__ import annotations
@@ -96,15 +96,64 @@ def test_cli_prints_the_final_profile_and_zone_counts(runs):
     assert os.path.exists(tmp / "logs_port" / "pipeline.log")
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--mjpeg-port", "0", "--resume-state", "state.npz"], "ROADMAP item 9"),
-    (["--resume-state", "state.npz"], "ROADMAP item 9"),
-    (["--state-interval", "10"], "ROADMAP item 9"),
-    (["-s", "a.mp4", "-s", "b.mp4", "--resume-state", "state.npz"], "ROADMAP item 9"),
+@pytest.fixture(scope="module")
+def resume_setup(tmp_path_factory):
+    """A 16-frame clip and a config for the resume cases: yolov8n at 128
+    (random weights, conf 0.01), the chunked path, one zone."""
+    tmp = tmp_path_factory.mktemp("resume")
+    clip = str(tmp / "clip.mp4")
+    write_synthetic_video(clip, frames=16, h=160, w=160, n_objects=2)
+    cfg = tmp / "cfg.yaml"
+    cfg.write_text(json.dumps({
+        "system": {"device": "cpu", "log_dir": str(tmp / "logs")},
+        "detection": {"model": "yolov8n", "input_size": 128, "conf_threshold": 0.01,
+                      "nms_candidates": 64, "max_detections": 20, "half": False},
+        "events": {"alert": {"log_path": str(tmp / "cli.jsonl")},
+                   "zones": [{"name": "z", "polygon": [[10, 10], [150, 10], [150, 150],
+                                                        [10, 150]],
+                              "dwell_time_sec": 0.0, "cooldown_sec": 0.5}]},
+        "profiling": {"warmup_frames": 0, "log_interval": 0, "per_stage": False},
+        "parallel": {"chunk_size": 4, "pipeline_depth": 1},
+        "visualization": {"enabled": False}}))
+    return str(cfg), clip
+
+
+@pytest.mark.parametrize("args,streams", [
+    (["--mjpeg-port", "0", "--resume-state", "state.npz"], 1),
+    (["--resume-state", "state.npz"], 1),
+    (["--state-interval", "4", "--resume-state", "state.npz"], 1),
+    (["--resume-state", "state.npz"], 2),
 ])
-def test_cli_refuses_what_is_not_ported(args, item):
+def test_cli_refuses_what_is_not_ported(resume_setup, tmp_path, monkeypatch, args, streams):
+    """The four cases that exited non-zero before kill-and-resume was ported
+    (ROADMAP item 9), now showing the flags at work; no flag of the CLI is
+    refused any more.  As tests/test_state_resume.py's CLI case: the first run stops at 8
+    frames with a snapshot of them, the second resumes from it and advances
+    it to the end of the file (one stream: the per-frame path behind the
+    MJPEG monitor, or the chunked path; two streams: the multi-camera
+    loop).  ``--state-interval 4`` adds a snapshot once 4 frames are
+    consumed, at a drained window: 8 frames with one chunk in flight."""
+    from rtmodt_tpu_torch.runtime import state_store
     from tools.run_pipeline_torch import main
 
-    with pytest.raises(SystemExit) as exc:
-        main(args)
-    assert item in str(exc.value.code)
+    cfg, clip = resume_setup
+    snap = str(tmp_path / "state.npz")
+    argv = ["-c", cfg, *[a for _ in range(streams) for a in ("-s", clip)],
+            *[snap if a == "state.npz" else a for a in args]]
+    saved = []
+    inner = state_store.save_snapshot
+    monkeypatch.setattr(state_store, "save_snapshot",
+                        lambda *a, **kw: (saved.append(kw["frames_done"]), inner(*a, **kw)))
+
+    def progress():
+        with np.load(snap) as z:
+            meta = json.loads(str(z["meta"]))
+        return meta.get("per_stream_frames", [meta.get("frames_done")])
+
+    assert main(argv + ["--max-frames", "8"]) == 0
+    assert progress() == [8] * streams
+    if streams == 1:
+        # at exit, and with --state-interval 4 at the drained window too
+        assert saved == ([8, 8] if "--state-interval" in args else [8])
+    assert main(argv) == 0
+    assert progress() == [16] * streams

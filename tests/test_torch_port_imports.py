@@ -67,7 +67,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.tracking.host_bytetrack",
                 "rtmodt_tpu_torch.serving.wsgi", "rtmodt_tpu_torch.serving.server",
                 "rtmodt_tpu_torch.serving.monitor", "rtmodt_tpu_torch.tracking.postprocess",
-                "rtmodt_tpu_torch.evaluation.coco_eval", "rtmodt_tpu_torch.evaluation.metrics"):
+                "rtmodt_tpu_torch.evaluation.coco_eval", "rtmodt_tpu_torch.evaluation.metrics",
+                "rtmodt_tpu_torch.runtime.state_store", "rtmodt_tpu_torch.ops.polygon"):
         assert mod in out["modules"]
 
 

@@ -228,13 +228,20 @@ def test_run_takes_the_chunked_path_when_nothing_per_frame_is_asked(clip, tmp_pa
 
 
 def test_warmup_leaves_no_tracks_behind(tmp_path):
+    """Warmup's dummy frames leave no track: on a fresh pipeline the state
+    stays empty, and a state that holds a real track (or one restored from
+    a snapshot) is put back as warmup found it."""
     pipe = Pipeline(load_config(overrides=overrides(str(tmp_path / "ev.jsonl"),
                                                     per_stage=True)))
+    pipe.warmup((H, W))
+    assert not bool(pipe.tracker.state.active.any())
+    assert int(pipe.tracker.state.next_id) == 1
     frame = np.full((H, W, 3), 30, np.uint8)
     frame[100:200, 150:260] = (40, 200, 90)
     pipe.step(frame, 1, 0.0)
     assert bool(pipe.tracker.state.active.any())
+    found = [t.clone() for t in pipe.tracker.state]
     before = nms_kernel.launches
     pipe.warmup((H, W))
-    assert not bool(pipe.tracker.state.active.any())
+    assert all(bool((a == b).all()) for a, b in zip(pipe.tracker.state, found))
     assert nms_kernel.launches == before

@@ -248,13 +248,19 @@ def test_degraded_run_names_the_dead_stream(clips, two_file_run, tmp_path):
     _assert_same_events(got, want)
 
 
-def test_refusals(msp, clips):
+def test_refusals(msp, clips, tmp_path):
+    from rtmodt_tpu_torch.runtime.state_store import save_snapshot
+
     with pytest.raises(ValueError, match="1 sources for 2 streams"):
         msp.run([clips["a"]])
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        msp.run([clips["a"], clips["b"]], state_path="state.npz")
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        msp.submit_chunk_packed(np.zeros((2, S, 72, 128, 6), np.uint8), H, W)
+    # a single-stream snapshot is not restored into S streams
+    single = str(tmp_path / "single.npz")
+    save_snapshot(single, msp.tracker)
+    with pytest.raises(ValueError, match="single-stream"):
+        msp.run([clips["a"], clips["b"]], state_path=single)
+    # a pre-packed chunk must have the x6 or x24 layout
+    with pytest.raises(ValueError, match="channels"):
+        msp.submit_chunk_packed(np.zeros((2, S, 72, 128, 5), np.uint8), H, W)
     with pytest.raises(ValueError, match="3 streams"):
         msp.step(np.zeros((3, H, W, 3), np.uint8))
     with pytest.raises(ValueError, match="lapjv"):

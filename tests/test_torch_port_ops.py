@@ -180,9 +180,6 @@ def test_config_loads_reference_yaml_and_rejects_unported_settings():
 @pytest.mark.parametrize("section,key,accepted,refused", [
     ("detection", "topk_impl", "approx", "fast"),
     ("detection", "quant", "none", "int8"),
-    ("events", "device_masks", False, True),
-    ("parallel", "transport", "i420", "bgr"),
-    ("parallel", "transport", "packed", "x6"),
 ])
 def test_config_drops_reference_only_keys_and_refuses_unported_values(
         section, key, accepted, refused):
@@ -192,3 +189,34 @@ def test_config_drops_reference_only_keys_and_refuses_unported_values(
     assert not hasattr(getattr(cfg, section), key)
     with pytest.raises(ValueError, match=key):
         load_config(overrides={section: {key: refused}})
+
+
+@pytest.mark.parametrize("case", ["device_masks", "transports", "x24_ineligible"])
+def test_config_takes_device_masks_and_the_transports(case):
+    """``events.device_masks`` and every ``parallel.transport`` load as the
+    reference loads them (with its refusals); x24 pinned on a geometry it
+    cannot block raises when the pipeline meets that geometry."""
+    from rtmodt_tpu.config.loader import load_config as jax_load
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.ops.yuv import s2d_level
+
+    if case == "device_masks":
+        cfg = load_config(overrides={"events": {"device_masks": True, "max_vertices": 8}})
+        assert cfg.events.device_masks is True and cfg.events.max_vertices == 8
+    elif case == "transports":
+        for t in ("packed", "x6", "x24", "i420", "bgr"):
+            assert load_config(overrides={"parallel": {"transport": t}}).parallel.transport == t
+        for bad in ({"parallel": {"transport": "rgb"}},
+                    {"parallel": {"transport": "x6"}, "tracking": {"algorithm": "deepsort"}},
+                    {"parallel": {"transport": "x24"}, "tracking": {"algorithm": "botsort"}}):
+            with pytest.raises(ValueError) as port_err:
+                load_config(overrides=bad)
+            with pytest.raises(ValueError) as ref_err:
+                jax_load(overrides=bad)
+            assert str(port_err.value) == str(ref_err.value)
+    else:
+        cfg = load_config(overrides={"parallel": {"transport": "x24"},
+                                     "detection": {"input_size": 256}})
+        assert s2d_level(cfg.parallel.transport, 288, 512, 256) == 2
+        with pytest.raises(ValueError, match="x24 pinned"):
+            s2d_level(cfg.parallel.transport, 300, 500, 256)

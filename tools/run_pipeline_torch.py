@@ -3,7 +3,8 @@
 
 The port's counterpart of ``tools/run_pipeline.py``, with the same flags:
 ``-c/--config``, ``-s/--source``, ``--display/--no-display``,
-``--max-frames``, ``--save-video`` and ``--mjpeg-port``.  It runs ``rtmodt_tpu_torch``'s
+``--max-frames``, ``--save-video``, ``--mjpeg-port``, ``--resume-state`` and
+``--state-interval``.  It runs ``rtmodt_tpu_torch``'s
 ``Pipeline.run`` on the device that ``system.device`` names (``cpu``, or
 ``cuda``/``tpu`` for the card) and prints the final profile and the zone
 counts.  Several ``-s`` set ``parallel.num_streams`` and run
@@ -11,12 +12,16 @@ counts.  Several ``-s`` set ``parallel.num_streams`` and run
 ``--save-video`` tile the annotated streams into one mosaic), which prints
 the multi-camera summary.  ``--mjpeg-port N`` serves the annotated frames
 (the mosaic with several ``-s``) as MJPEG on port N while the run lasts
-(``http://host:N/``; 0 picks a free port, which the log names).  Not
-ported, and refused with a non-zero exit: ``--resume-state`` /
-``--state-interval`` (ROADMAP item 9).
+(``http://host:N/``; 0 picks a free port, which the log names).
+``--resume-state PATH`` keeps a kill-and-resume snapshot at PATH, rewritten
+every ``--state-interval`` frames (default 300) and at clean exit; started
+again with the same flags after a kill, the run restores it and carries on
+with the same track ids, dwell timers, cooldowns and zone counts (a video
+file resumes at the frame after the snapshot's).
 
     python tools/run_pipeline_torch.py -c cfg.yaml -s video.mp4 --max-frames 100
     python tools/run_pipeline_torch.py -c cfg.yaml -s cam0.mp4 -s cam1.mp4
+    python tools/run_pipeline_torch.py -c cfg.yaml -s video.mp4 --resume-state state.npz
 """
 
 from __future__ import annotations
@@ -30,11 +35,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rtmodt_tpu_torch.config import load_config  # noqa: E402
 from rtmodt_tpu_torch.utils.logging import logger  # noqa: E402
-
-_NOT_PORTED = {
-    "state_path": "--resume-state is not ported: ROADMAP item 9",
-    "state_interval": "--state-interval (resume snapshots) is not ported: ROADMAP item 9",
-}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -52,17 +52,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--mjpeg-port", type=int, default=None,
                     help="serve the annotated frames as MJPEG on this port "
                          "(http://host:PORT/; implies visualization)")
-    ap.add_argument("--resume-state", dest="state_path", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--state-interval", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume-state", dest="state_path", default=None,
+                    help="pipeline snapshot path: restore track ids and zone dwell/cooldown "
+                         "state from it if present, and keep it updated (periodically and "
+                         "at clean exit) so a killed 24/7 run resumes where it left off")
+    ap.add_argument("--state-interval", type=int, default=300,
+                    help="snapshot every N consumed frames (with --resume-state)")
     return ap.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    for key, msg in _NOT_PORTED.items():
-        if getattr(args, key) is not None:
-            raise SystemExit(f"run_pipeline_torch: {msg}")
-
     overrides: dict = {}
     if len(args.source) == 1:
         overrides["ingestion"] = {"source": args.source[0]}
@@ -93,9 +93,15 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:     # asked for the card where there is none
         raise SystemExit(f"run_pipeline_torch: {e}")
     if len(args.source) > 1:
-        summary = pipe.run(list(args.source), max_frames=args.max_frames, display=args.display)
+        summary = pipe.run(list(args.source), max_frames=args.max_frames, display=args.display,
+                           state_path=args.state_path, state_interval=args.state_interval)
     else:
-        summary = pipe.run(display=args.display, max_frames=args.max_frames)
+        skip = 0
+        if args.state_path and os.path.exists(args.state_path):
+            skip = pipe.load_runtime_state(args.state_path)
+        summary = pipe.run(display=args.display, max_frames=args.max_frames,
+                           state_path=args.state_path, state_interval=args.state_interval,
+                           skip_frames=skip)
         if pipe.events is not None and summary is not None:
             summary = dict(summary)
             summary["zone_counts"] = pipe.events.zone_counts()
