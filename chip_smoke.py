@@ -86,7 +86,25 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      events, masks equal to ``points_in_polygons`` on the CPU, the mask
      step's ms per chunk; (f) planes, x6 and x24 through
      ``submit_packed_yuv`` (and planes, x6 through ``submit_chunk_packed``)
-     give bit-equal tracks; ``transport: bgr`` through ``run_chunked``.
+     give bit-equal tracks; ``transport: bgr`` through ``run_chunked``;
+ 11. int8 and the rest of this slice: (a) ``run_chunked`` with
+     ``detection.quant: int8`` (synthetic calibration, bf16 float layers) on
+     phase 5's frames: K1 once per chunk and the int8 GEMM once per quantized
+     layer and chunk, K1 bit for bit against its plain version on every
+     chunk, the forward's and the chunk program's ms/frame (CUDA events,
+     profiler device time), idle share and e2e fps beside phase 5's bf16;
+     (b) ``torch._int_mm`` against its int64 plain version on every
+     quantized layer of one chunk (0 mismatches), its time and bound on the
+     largest layer beside cuDNN's bf16 conv of it; (c) the frozen QAT scales
+     ``qat_act_scales.npz`` on ``ema_final.npz``, ``Pipeline.run`` per stage
+     on the 25-fps file; (d) int8 on ``MultiStreamPipeline.run`` at S = 2, T
+     = 8; (e) ``Pipeline.run`` with ``transport: bgr`` at depth 0 and 2: the
+     BGR program, never the packed one; (f) ``events.alert.backend: mqtt``
+     against a broker thread on localhost: one PUBLISH per JSONL line, the
+     payloads equal; (g) rich640d as ultralytics-named ``.pt`` (tensors, and a
+     pickled model of unimportable classes): detections bit-equal to the
+     ``.npz`` route; (h) ``run_inference_torch detect --quant int8``: mAP@0.5
+     beside phase 9's bf16.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -170,6 +188,13 @@ CONC_THREADS, CONC_REQUESTS = 8, 8
 CONC_BOX_TOL = 1e-3    # px
 MONITOR_PARTS = 3      # distinct /stream parts a viewer must receive
 RI_IMAGES, RI_OBJECTS = 8, 16   # run_inference_torch detect: frames, objects a frame
+# phase 11: int8, frozen QAT scales, the per-frame bgr path, mqtt, .pt weights
+QAT_SCALES = os.path.join(ROOT, "checkpoints", "rich640d", "qat_act_scales.npz")
+INT8_LAYERS = 56       # YOLOv8s's fused ConvBNs less the stem, quantized
+INT8_PEAK = 1979e12    # H100 SXM dense int8, operations/s
+BF16_PEAK = 989e12     # H100 SXM dense bf16, FLOP/s
+BGR_FRAMES = 48        # frames of the 25-fps file through each per-frame bgr run
+PT_FRAMES = 4          # phase-5 frames detected through the .pt and .npz routes
 
 
 def phase(msg: str) -> None:
@@ -2018,6 +2043,473 @@ def resume_paths(smi: str) -> dict:
     return out
 
 
+class _Broker:
+    """An MQTT broker for one client on localhost: CONNACK after CONNECT,
+    every PUBLISH kept as (topic, payload) until the client disconnects."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(60.0)
+        self.port = self.srv.getsockname()[1]
+        self.raw = b""
+        self.error: BaseException | None = None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self) -> None:
+        try:
+            conn, _ = self.srv.accept()
+            conn.settimeout(60.0)
+            with conn:
+                while True:
+                    data = conn.recv(65536)
+                    if not data:
+                        return
+                    if not self.raw:
+                        conn.sendall(bytes([0x20, 0x02, 0x00, 0x00]))   # CONNACK
+                    self.raw += data
+                    if self.raw.endswith(bytes([0xE0, 0x00])):           # DISCONNECT
+                        return
+        except BaseException as e:   # noqa: BLE001 - reported by the phase, which fails on it
+            self.error = e
+        finally:
+            self.srv.close()
+
+    def publishes(self) -> list[tuple[str, bytes]]:
+        self.thread.join(60.0)
+        if self.error is not None or self.thread.is_alive():
+            fail(f"the MQTT broker thread failed: {self.error!r}")
+        out, buf = [], self.raw
+        while buf:
+            rl, mult, i = 0, 1, 1
+            while True:
+                byte = buf[i]
+                rl += (byte & 0x7F) * mult
+                mult *= 128
+                i += 1
+                if not byte & 0x80:
+                    break
+            body, ptype, buf = buf[i:i + rl], buf[0] >> 4, buf[i + rl:]
+            if ptype == 3:
+                n = int.from_bytes(body[:2], "big")
+                out.append((body[2:2 + n].decode(), body[2 + n:]))
+        return out
+
+
+def _ultralytics_state(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``model``'s weights under ultralytics' DetectionModel names (the
+    inverse of ``models/weights.py::_LAYER_MAP`` and its head naming), with
+    the DFL's fixed arange conv."""
+    from rtmodt_tpu_torch.models.weights import _LAYER_MAP
+
+    inv = {v: k for k, v in _LAYER_MAP.items()}
+    out = {}
+    for name, t in model.state_dict().items():
+        top, *rest = name.split(".")
+        if top == "head":
+            branch, leaf = rest[0], rest[1:]                   # box0_1, [conv, weight]
+            key = ["model.22", "cv2" if branch[:3] == "box" else "cv3", branch[3], branch[5],
+                   *leaf]
+        else:
+            key = [f"model.{inv[top]}"]
+            for p in rest:
+                key += ["m", p[1:]] if p[0] == "m" and p[1:].isdigit() else [p]
+        out[".".join(key)] = t.detach().cpu().clone()
+    out["model.22.dfl.conv.weight"] = torch.arange(16, dtype=torch.float32).reshape(1, 16, 1, 1)
+    return out
+
+
+def _save_pickled_model(state: dict[str, torch.Tensor], path: str) -> None:
+    """torch.save ``{"model": DetectionModel}`` whose module classes belong to
+    a module that no longer exists when the file is loaded (as a real
+    ``yolov8s.pt`` pickles ultralytics' classes)."""
+    import types
+
+    mod = types.ModuleType("smoke_vanished_yolo")
+
+    class DetectionModel(torch.nn.Module):
+        pass
+
+    class Block(torch.nn.Module):
+        pass
+
+    for cls in (DetectionModel, Block):
+        cls.__module__, cls.__qualname__ = mod.__name__, cls.__name__
+        setattr(mod, cls.__name__, cls)
+    root = DetectionModel()
+    for key, t in state.items():
+        *parts, leaf = key.split(".")
+        m = root
+        for p in parts:
+            if p not in m._modules:
+                m.add_module(p, Block())
+            m = m._modules[p]
+        if leaf.startswith(("running_", "num_batches")):
+            m.register_buffer(leaf, t)
+        else:
+            m.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"model": root, "epoch": 0}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def int8_paths(smi: str, frames: np.ndarray, bf16: dict, detect_map: float) -> dict:
+    """Phase 11: int8 (synthetic PTQ chunked, the int8 GEMM against its int64
+    plain version, frozen QAT scales per stage, S = 2 streams, the offline
+    tool's mAP), the per-frame ``transport: bgr`` loop, the mqtt backend and
+    ultralytics ``.pt`` weights.  ``bf16`` holds phase 5's figures of the
+    same call.  Returns K1's launches per run, its mismatches and the int8
+    readings."""
+    import cv2
+
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DEFAULTS
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.detection.detector import Detector
+    from rtmodt_tpu_torch.models.weights import load_into, load_npz
+    from rtmodt_tpu_torch.models.yolov8 import build_model
+    from rtmodt_tpu_torch.ops import int8_conv, nms, nms_kernel
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.quant.ptq import QuantizedConvBN, load_act_scales
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    zones = DEFAULTS["events"]["zones"] + [whole]
+    base = {"system": {"device": DEVICE},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS},
+            "profiling": {"log_interval": 0}, "visualization": {"enabled": False}}
+    int8 = {"detection": {"quant": "int8"}}
+
+    def cfg_with(log: str, *overs: dict, alert: dict | None = None):
+        _fresh(log)
+        c = base
+        for o in overs:
+            c = _merge(c, o)
+        return load_config(overrides=_merge(c, {"events": {
+            "zones": zones, "alert": {"log_path": log, **(alert or {})}}}))
+
+    def n_lines(log: str) -> int:
+        return len(_event_rows(log))
+
+    def quantized(model) -> list:
+        return [m for m in model.modules() if isinstance(m, QuantizedConvBN)]
+
+    # (a) int8 with synthetic calibration on the chunked path
+    print(f"  (a) run_chunked, int8 (synthetic calibration, bf16 float layers): "
+          f"{N_CHUNKS} chunks of {K} {W}x{H} frames", flush=True)
+    log = os.path.join(OUT_DIR, "events_int8.jsonl")
+    pipe = Pipeline(cfg_with(log, int8, {"parallel": {"chunk_size": K}}), device=DEVICE)
+    qmods = quantized(pipe.detector.model)
+    if len(qmods) != INT8_LAYERS:
+        fail(f"int8 model holds {len(qmods)} quantized layers, not {INT8_LAYERS}")
+    pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN and cuBLASLt plans
+    pipe.reset()
+    _fresh(log)
+    torch.cuda.synchronize()
+    nms_kernel.launches = int8_conv.launches = 0
+    summary = pipe.run_chunked(list(frames))
+    launches, mm_launches = nms_kernel.launches, int8_conv.launches
+    out["launches"]["int8_chunk"] = {"launches": launches, "frames": summary["frames"]}
+    print(f"  run: {json.dumps(summary)}; K1 launches {launches}, int8 GEMM launches "
+          f"{mm_launches}", flush=True)
+    if (launches != summary["chunks"] or summary["frames"] != K * N_CHUNKS
+            or (DEVICE == "cuda" and mm_launches != summary["chunks"] * INT8_LAYERS)):
+        fail(f"int8 run: K1 launched {launches}, the int8 GEMM {mm_launches} times for "
+             f"{summary['chunks']} chunks")
+    st = pipe.tracker.state
+    vis_end, births = int((st.active & (st.tsu == 0)).sum()), int(st.next_id) - 1
+    print(f"  tracks: {vis_end} visible at the end, {births} ids born for {N_OBJECTS} objects; "
+          f"{n_lines(log)} zone events", flush=True)
+    if vis_end < N_OBJECTS // 2 or births > 3 * N_OBJECTS or n_lines(log) == 0:
+        fail(f"int8 run: tracks not stable or no events ({vis_end} visible, {births} ids)")
+    if not torch.isfinite(st.boxes[st.active]).all():
+        fail("int8 run: non-finite track boxes")
+    # K1 against its plain version on every chunk of a second run
+    checked = {"calls": 0, "mismatches": 0}
+    inner = nms.greedy_suppress
+
+    def checking(boxes, scores, iou):
+        keep = inner(boxes, scores, iou)
+        want = nms_kernel.greedy_suppress_reference(boxes, scores, iou)
+        checked["calls"] += 1
+        checked["mismatches"] += int((keep.cpu() != want.cpu()).sum())
+        return keep
+
+    nms.greedy_suppress = checking
+    try:
+        pipe.reset()
+        pipe.run_chunked(list(frames))
+    finally:
+        nms.greedy_suppress = inner
+    out["mismatches"] += checked["mismatches"]
+    print(f"  K1 against its plain version on each of the {checked['calls']} chunks: "
+          f"mismatches {checked['mismatches']}", flush=True)
+    if checked["calls"] != N_CHUNKS or checked["mismatches"]:
+        fail(f"int8 run: K1 differs from its plain version ({checked})")
+    # the chunk program's times, int8 beside phase 5's bf16 of this call
+    (y, u, v), meta = pack_chunk(frames[:K], SIZE)
+    planes = tuple(torch.from_numpy(p).to(DEVICE) for p in (y, u, v))
+    pipe.reset()
+    chunk_ms = cuda_time_ms(lambda: pipe.submit_packed_yuv(planes, H, W), iters=10)
+    chunk_dev_ms = device_ms(lambda: pipe.submit_packed_yuv(planes, H, W), iters=3)
+    with torch.no_grad():
+        x16 = planar_letterbox(*planes, SIZE, meta.pad_left, meta.pad_top).permute(0, 3, 1, 2)
+        fwd_ms = cuda_time_ms(lambda: pipe.detector.model(x16), iters=20)
+        fwd_dev_ms = device_ms(lambda: pipe.detector.model(x16), iters=5)
+    idle = None if chunk_dev_ms is None else 100 * (1 - chunk_dev_ms / chunk_ms)
+    out["int8"] = {"chunk_ms_per_frame": chunk_ms / K, "forward_ms_per_frame": fwd_ms / K,
+                   "e2e_fps": summary["fps"],
+                   "chunk_device_ms_per_frame": None if chunk_dev_ms is None
+                   else chunk_dev_ms / K,
+                   "forward_device_ms_per_frame": None if fwd_dev_ms is None
+                   else fwd_dev_ms / K, "device_idle_pct": idle}
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    print(f"  int8 vs bf16 ({smi}), ms/frame at K = {K}: forward (CUDA events) "
+          f"{fwd_ms / K:.4f} vs {bf16['fwd_ms'] / K:.4f}; forward device time "
+          f"{ms(None if fwd_dev_ms is None else fwd_dev_ms / K)}; chunk program "
+          f"{chunk_ms / K:.4f} vs {bf16['chunk_ms'] / K:.4f}, device time "
+          f"{ms(None if chunk_dev_ms is None else chunk_dev_ms / K)} vs "
+          f"{ms(None if bf16['chunk_dev_ms'] is None else bf16['chunk_dev_ms'] / K)}; "
+          f"device idle {ms(idle)} % vs {ms(bf16['idle'])} %; e2e {summary['fps']:.2f} vs "
+          f"{bf16['fps']:.2f} frames/s", flush=True)
+
+    # (b) the int8 GEMM against its int64 plain version on every quantized
+    # layer of one chunk, and its time on the largest
+    caps: list = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: caps.append((mod, args[0])))
+             for m in qmods]
+    with torch.no_grad():
+        pipe.detector.model(x16)
+    for hk in hooks:
+        hk.remove()
+    mism, largest = 0, None
+    for mod, x in caps:
+        with torch.no_grad():
+            xq = mod.quantize_input(x)
+            a, _ = int8_conv.im2col_int8(xq, mod.kernel, mod.stride)
+            got = int8_conv.int8_mm(a, mod.qweight)
+            want = int8_conv.int8_mm_reference(a, mod.qweight)
+        mism += int((got.long() != want).sum())
+        work = a.shape[0] * a.shape[1] * mod.qweight.shape[1]
+        if largest is None or work > largest[0]:
+            largest = (work, mod, x)
+        del a, got, want
+    out["mismatches"] += mism
+    print(f"  (b) int8 GEMM against its int64 plain version on all {len(caps)} quantized "
+          f"layers of one chunk: mismatches {mism}", flush=True)
+    if len(caps) != INT8_LAYERS or mism:
+        fail(f"int8 GEMM differs from its plain version ({mism} of {len(caps)} layers)")
+    _, mod, x = largest
+    name = next(n for n, m in pipe.detector.model.named_modules() if m is mod)
+    fm = pipe.detector._float_model.get_submodule(name).conv
+    with torch.no_grad():
+        xq = mod.quantize_input(x)
+        a, _ = int8_conv.im2col_int8(xq, mod.kernel, mod.stride)
+        mm = lambda: int8_conv.int8_mm(a, mod.qweight)  # noqa: E731
+        m_, k_ = a.shape
+        n_ = mod.qweight.shape[1]
+        mm_ms = cuda_time_ms(mm, iters=20)
+        mm_dev = device_ms(mm, iters=20)
+        conv_ms = cuda_time_ms(lambda: mod(x), iters=20)
+        wb = fm.weight.to(torch.bfloat16).to(memory_format=torch.channels_last)
+        bb = fm.bias.to(torch.bfloat16)
+        cudnn_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+            x, wb, bb, fm.stride, fm.padding), iters=20)
+    nbytes = m_ * k_ + k_ * n_ + m_ * n_ * 4
+    t_bytes, t_ops = nbytes / HBM_RATE, 2.0 * m_ * k_ * n_ / INT8_PEAK
+    bound = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    out["int8"].update({"int_mm_layer": name, "int_mm_shape": [m_, k_, n_], "int_mm_ms": mm_ms,
+                        "int_mm_device_ms": mm_dev, "int_mm_bound_ms": bound[0],
+                        "int_mm_bound_by": bound[1], "int8_layer_ms": conv_ms,
+                        "bf16_cudnn_layer_ms": cudnn_ms})
+    print(f"  _int_mm on the largest layer ({name}: M={m_}, K={k_}, N={n_}): {mm_ms:.4f} ms "
+          f"(CUDA events), device {ms(mm_dev)} ms, bound {bound[0]:.5f} ms ({bound[1]}); the "
+          f"whole int8 layer (quantize + im2col + GEMM + rescale + SiLU) {conv_ms:.4f} ms "
+          f"against cuDNN's bf16 conv of it {cudnn_ms:.4f} ms", flush=True)
+    del pipe, caps, largest, a, x16
+    torch.cuda.empty_cache()
+
+    # (c) frozen QAT scales on ema_final.npz, per stage on the 25-fps file
+    clip = os.path.join(OUT_DIR, "live720.mp4")
+    n_file = N_LIVE + LIVE_WARMUP
+    print(f"  (c) Pipeline.run per stage, int8 with the frozen QAT scales "
+          f"{os.path.relpath(QAT_SCALES, ROOT)}: {n_file} frames", flush=True)
+    log = os.path.join(OUT_DIR, "events_int8_qat.jsonl")
+    pipe = Pipeline(cfg_with(log, {"detection": {"quant": "int8", "quant_scales": QAT_SCALES}},
+                             {"profiling": {"per_stage": True,
+                                            "warmup_frames": LIVE_WARMUP}}), device=DEVICE)
+    scales = load_act_scales(QAT_SCALES)
+    names = {n.replace(".", "/") for n, m in pipe.detector.model.named_modules()
+             if isinstance(m, QuantizedConvBN)}
+    if len(names) != INT8_LAYERS or not names <= set(scales):
+        fail(f"frozen scales: {len(names)} quantized layers, {len(set(scales) - names)} "
+             "scales unused")
+    torch.cuda.synchronize()
+    nms_kernel.launches = 0
+    summary = pipe.run(clip)
+    launches, n = nms_kernel.launches, pipe.profiler.frame_count
+    out["launches"]["int8_qat_per_stage"] = {"launches": launches, "frames": n}
+    print("  " + json.dumps({"path": "int8_qat_per_stage", "card": smi, "frames": n,
+                             **summary}), flush=True)
+    print(f"  K1 launches {launches} for {n} frames + {WARMUP_ITERS} warmup; "
+          f"{n_lines(log)} zone events", flush=True)
+    if n != n_file or launches != n + WARMUP_ITERS or n_lines(log) == 0:
+        fail(f"frozen-scale run: {n} frames, K1 launched {launches} times, "
+             f"{n_lines(log)} events")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # (d) int8 on S = 2 streams
+    s2 = 2
+    files = [os.path.join(OUT_DIR, f"multi{si}.mp4") for si in range(s2)]
+    print(f"  (d) MultiStreamPipeline.run, int8: {s2} x {N_MULTI} frames, T = {T_MULTI}",
+          flush=True)
+    log = os.path.join(OUT_DIR, "events_int8_multi.jsonl")
+    msp = MultiStreamPipeline(cfg_with(log, int8, {"parallel": {
+        "num_streams": s2, "chunk_size": T_MULTI, "pipeline_depth": MULTI_DEPTH}}))
+    if len(quantized(msp.detector.model)) != INT8_LAYERS:
+        fail("int8 multi-stream model is not quantized")
+    msp.warmup((H, W), T_MULTI)
+    c0 = msp.chunks_submitted
+    nms_kernel.launches = 0
+    summary = msp.run(files)
+    launches, chunks = nms_kernel.launches, msp.chunks_submitted - c0
+    out["launches"]["int8_multistream"] = {"launches": launches, "chunks": chunks,
+                                           "frames": summary["frames"]}
+    per_stream = [0] * s2
+    for row in _event_rows(log):
+        per_stream[row["metadata"]["stream"]] += 1
+    print("  " + json.dumps({"path": "int8_multistream", "card": smi, **summary,
+                             "chunks": chunks}), flush=True)
+    print(f"  K1 launches {launches} for {chunks} chunks of B = {T_MULTI * s2}; zone events "
+          f"per stream {per_stream}", flush=True)
+    if (launches != chunks or chunks != -(-N_MULTI // T_MULTI)
+            or summary["frames"] != s2 * N_MULTI or min(per_stream) == 0):
+        fail(f"int8 multi-stream run: K1 {launches} for {chunks} chunks, "
+             f"{summary['frames']} frames, events {per_stream}")
+    del msp
+    torch.cuda.empty_cache()
+
+    # (e) transport: bgr on the per-frame loop (the BGR program, never the packed one)
+    for depth in (0, 2):
+        print(f"  (e) Pipeline.run, transport bgr, per_stage false, depth {depth}: "
+              f"{BGR_FRAMES} frames", flush=True)
+        log = os.path.join(OUT_DIR, f"events_bgr_d{depth}.jsonl")
+        pipe = Pipeline(cfg_with(log, {"profiling": {"per_stage": False,
+                                                     "warmup_frames": LIVE_WARMUP},
+                                       "parallel": {"transport": "bgr", "chunk_size": 1,
+                                                    "pipeline_depth": depth}}), device=DEVICE)
+        calls = {"packed": 0}
+        inner_pd = pipe.packed_detect
+
+        def packed_detect(*a, **kw):
+            calls["packed"] += 1
+            return inner_pd(*a, **kw)
+
+        pipe.packed_detect = packed_detect
+        torch.cuda.synchronize()
+        nms_kernel.launches = 0
+        summary = pipe.run(clip, max_frames=BGR_FRAMES)
+        launches, n = nms_kernel.launches, pipe.profiler.frame_count
+        out["launches"][f"bgr_per_frame_d{depth}"] = {"launches": launches, "frames": n}
+        print(f"  fps_mean {summary.get('fps_mean', 0.0):.2f}; K1 launches {launches} for {n} "
+              f"frames + {WARMUP_ITERS} warmup; packed program calls {calls['packed']}; "
+              f"{n_lines(log)} zone events", flush=True)
+        if (n != BGR_FRAMES or launches != n + WARMUP_ITERS or calls["packed"]
+                or n_lines(log) == 0):
+            fail(f"bgr per-frame run at depth {depth}: {n} frames, K1 {launches}, packed "
+                 f"calls {calls['packed']}, {n_lines(log)} events")
+        del pipe
+
+    # (f) the mqtt backend: every logged event published to a broker on localhost
+    broker = _Broker()
+    log = os.path.join(OUT_DIR, "events_mqtt.jsonl")
+    print(f"  (f) run_chunked with events.alert.backend mqtt (broker on 127.0.0.1:"
+          f"{broker.port}): {N_CHUNKS} chunks of {K}", flush=True)
+    pipe = Pipeline(cfg_with(log, {"parallel": {"chunk_size": K}}, alert={
+        "backend": "mqtt", "mqtt_host": "127.0.0.1", "mqtt_port": broker.port,
+        "mqtt_topic": "rtmodt/smoke"}), device=DEVICE)
+    torch.cuda.synchronize()
+    nms_kernel.launches = 0
+    summary = pipe.run_chunked(list(frames))
+    launches = nms_kernel.launches
+    out["launches"]["mqtt_chunk"] = {"launches": launches, "frames": summary["frames"]}
+    if pipe.events._mqtt is not None:
+        pipe.events._mqtt.close()
+    got = broker.publishes()
+    with open(log) as f:
+        lines = f.read().splitlines()
+    print(f"  {len(got)} PUBLISH packets for {len(lines)} JSONL lines; K1 launches "
+          f"{launches}", flush=True)
+    if (not lines or len(got) != len(lines) or any(t != "rtmodt/smoke" for t, _ in got)
+            or [p.decode() for _, p in got] != lines or launches != summary["chunks"]):
+        fail(f"mqtt: {len(got)} packets for {len(lines)} events, K1 {launches}")
+    del pipe
+
+    # (g) ultralytics .pt weights: plain tensors and a pickled model of
+    # unimportable classes, against the .npz route on phase 5's frames
+    ref = build_model("yolov8s", 8)
+    load_into(ref, load_npz(WEIGHTS))
+    state = _ultralytics_state(ref)
+    pts = {"pt_plain": os.path.join(OUT_DIR, "rich640d_state.pt"),
+           "pt_pickled": os.path.join(OUT_DIR, "rich640d_model.pth")}
+    torch.save(state, pts["pt_plain"])
+    _save_pickled_model(state, pts["pt_pickled"])
+    print(f"  (g) ultralytics-named rich640d ({len(state)} tensors) as a tensor .pt and as a "
+          f"pickled model: detections on {PT_FRAMES} frames against the .npz route", flush=True)
+    dcfg = dict(model="yolov8s", num_classes=8, input_size=SIZE, conf_threshold=0.25,
+                classes=None)
+    want = Detector(_merge(dcfg, {"weights": WEIGHTS}), device=DEVICE, warmup=False)
+    want_dets = [want.detect(frames[7 * t]) for t in range(PT_FRAMES)]
+    del want
+    for key, path in pts.items():
+        det = Detector(_merge(dcfg, {"weights": path}), device=DEVICE, warmup=False)
+        nms_kernel.launches = 0
+        dets = [det.detect(frames[7 * t]) for t in range(PT_FRAMES)]
+        launches = nms_kernel.launches
+        out["launches"][key] = {"launches": launches, "frames": PT_FRAMES}
+        same = all(np.array_equal(a.xyxy, b.xyxy) and np.array_equal(a.confidence, b.confidence)
+                   and np.array_equal(a.class_id, b.class_id) for a, b in zip(dets, want_dets))
+        print(f"  {key}: {sum(len(d) for d in dets)} detections, equal to the .npz route: "
+              f"{same}; K1 launches {launches}", flush=True)
+        if not same or launches != PT_FRAMES or not sum(len(d) for d in dets):
+            fail(f"{key}: detections differ from the .npz route or K1 launched {launches}")
+        del det
+    torch.cuda.empty_cache()
+
+    # (h) run_inference_torch detect --quant int8 on phase 9's frames
+    img_dir, gt_json = os.path.join(OUT_DIR, "ri_detect"), os.path.join(OUT_DIR, "ri_gt.json")
+    dev_flag = [] if DEVICE == "cuda" else ["--cpu"]
+    proc, launches, seconds = _counted_subprocess("tools.run_inference_torch", [
+        "detect", "--images", img_dir, "--gt-json", gt_json, "--weights", WEIGHTS,
+        "--num-classes", "8", "--input-size", str(SIZE), "--evaluate", "--quant", "int8",
+        "--out", os.path.join(OUT_DIR, "ri_predictions_int8.json"), *dev_flag])
+    m_det = json.loads("\n".join(proc.stdout.strip().splitlines()[:-1]))
+    out["launches"]["int8_detect"] = {"launches": launches, "frames": RI_IMAGES}
+    out["int8"]["detect_map50"] = m_det["mAP_50"]
+    print(f"  (h) run_inference_torch detect --quant int8: {json.dumps(m_det)} ({seconds:.1f} s, "
+          f"K1 launches {launches}); mAP@0.5 int8 {m_det['mAP_50']:.4f} against bf16's "
+          f"{detect_map:.4f} in phase 9 of this call", flush=True)
+    if launches != RI_IMAGES or not m_det["mAP_50"] > 0.3:
+        fail(f"int8 detect: mAP@0.5 {m_det['mAP_50']}, K1 launches {launches}")
+    print(json.dumps({"int8": out["int8"], "card": smi}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -2038,13 +2530,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/10 card")
+    phase("1/11 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/10 build kernels (nvcc -> ctypes)")
+    phase("2/11 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -2057,7 +2549,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/10 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/11 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -2080,7 +2572,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/10 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/11 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     cfg = load_config(overrides={
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -2123,7 +2615,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/10 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/11 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -2236,29 +2728,39 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/10 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/11 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/10 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/11 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/10 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/11 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
-    phase("9/10 serving: the web app over a socket, the default build, 8-way concurrency, "
+    phase("9/11 serving: the web app over a socket, the default build, 8-way concurrency, "
           "the MJPEG monitor, run_inference_torch")
     t9 = time.perf_counter()
     serving = serving_paths(smi, live["quality"])
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
-    phase("10/10 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
+    phase("10/11 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
           "zone masks, the x6 / x24 / bgr transports")
     t10 = time.perf_counter()
     resume = resume_paths(smi)
     max_err = max(max_err, float(resume["mismatches"]))
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    phase("11/11 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
+          "version, frozen QAT scales per stage, S = 2), the per-frame bgr loop, mqtt, .pt "
+          "weights, int8 mAP")
+    t11 = time.perf_counter()
+    bf16 = {"fwd_ms": fwd_ms, "chunk_ms": chunk_ms, "chunk_dev_ms": chunk_dev_ms,
+            "idle": None if chunk_dev_ms is None else 100 * (1 - chunk_dev_ms / chunk_ms),
+            "fps": summary["fps"]}
+    quant = int8_paths(smi, frames, bf16, serving["detect_eval"]["mAP_50"])
+    max_err = max(max_err, float(quant["mismatches"]))
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                **live["launches"], **trackers["launches"], **multi["launches"],
-               **serving["launches"], **resume["launches"]}
+               **serving["launches"], **resume["launches"], **quant["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -5,9 +5,14 @@ port runs: ``system``, ``ingestion``, ``detection``, ``tracking`` (all four
 trackers and GMC), ``events``, ``profiling``, ``visualization`` and
 ``parallel``.  Defaults are built in Python (``DEFAULTS`` mirrors the
 reference package's ``config/default.yaml``).  ``yaml`` is imported only
-when a YAML path is given; the keys of ``_REFERENCE_ONLY`` are skipped with
-a log line, so the reference package's YAML files load unmodified.  Any other unknown key raises, and so does a value the port
-cannot honour (``validate`` names the ROADMAP item that will bring it).
+when a YAML path is given.  A YAML written with the original GPU repository's
+key names (``confidence_threshold``, ``model_path``, a ``{width, height}``
+resolution, a ``[w, h]`` input size, ...) is translated first
+(``_REFERENCE_ALIASES``, as the reference loader does); the keys of
+``_REFERENCE_ONLY`` are then skipped with a log line, so the reference
+package's YAML files load unmodified.  Any other unknown key raises, and so
+does a value the port cannot honour (``validate`` names the ROADMAP item
+that will bring it).
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ class IngestionConfig:
 @dataclass
 class DetectionConfig:
     model: str = "yolov8s"
-    weights: str | None = None          # flat .npz of the reference's Flax params
+    weights: str | None = None          # flat .npz of the reference's Flax params,
+                                        # or an ultralytics .pt / .pth
     fallback_weights: str | None = None
     num_classes: int = 80
     input_size: int = 640
@@ -55,6 +61,13 @@ class DetectionConfig:
                                         # greedy, all run the CUDA kernel here
     fuse_bn: bool = True                # fold BN into convs for inference
     half: bool = True                   # bf16 model compute
+    quant: str = "none"                 # none | int8 (post-training quantization,
+                                        # quant/ptq.py)
+    calib_frames: int = 4               # synthetic calibration batches at init;
+                                        # Detector.calibrate(frames) requantizes
+                                        # on real frames
+    quant_scales: str | None = None     # frozen activation scales from QAT
+                                        # (qat_act_scales.npz); requires int8
 
 
 @dataclass
@@ -164,9 +177,12 @@ class ZoneConfig:
 
 @dataclass
 class AlertConfig:
-    backend: str = "json_file"          # json_file | webhook
+    backend: str = "json_file"          # json_file | webhook | mqtt
     log_path: str = "logs/events.jsonl"
     webhook_url: str = ""
+    mqtt_host: str = ""                 # broker for backend=mqtt (events/mqtt.py)
+    mqtt_port: int = 1883
+    mqtt_topic: str = "rtmodt/events"
 
 
 @dataclass
@@ -303,13 +319,56 @@ _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
     ("system",): {"precision": None, "output_dir": None},
     ("ingestion",): {"buffer_size": None},
     ("profiling",): {"trace_frames": None},
-    ("detection",): {"batch_size": None, "calib_frames": None, "quant_scales": None,
-                     "topk_impl": ("exact", "approx"),
-                     "quant": ("none",)},          # int8: ROADMAP item 10
+    ("detection",): {"batch_size": None, "topk_impl": ("exact", "approx")},
     ("tracking", "bytetrack"): {"mot20": None},
-    ("events", "alert"): {"mqtt_host": None, "mqtt_port": None, "mqtt_topic": None},
     ("parallel",): {"mesh_axes": None, "donate_state": None},
 }
+
+
+# The original GPU repository's key names (its config/default.yaml), as the
+# reference loader translates them: (section, its key) -> the key here, or
+# None for a key with no counterpart (dropped with a log line).
+_REFERENCE_ALIASES: dict[tuple[str, str], str | None] = {
+    ("detection", "confidence_threshold"): "conf_threshold",
+    ("detection", "nms_iou_threshold"): "iou_threshold",
+    ("detection", "model_path"): "weights",
+    ("detection", "fallback_model"): "fallback_weights",
+    ("ingestion", "max_reconnect_attempts"): "max_reconnects",
+    ("ingestion", "drop_stale_frames"): None,   # the reader keeps the newest frame
+    ("profiling", "gpu_sync"): None,            # per-stage timing always syncs
+    ("profiling", "log_interval_frames"): "log_interval",
+    ("system", "num_workers"): None,            # ingest threading is automatic
+    ("visualization", "show_fps"): "show_hud",
+    ("visualization", "show_ids"): "show_labels",
+}
+
+
+def _apply_reference_aliases(raw: dict) -> dict:
+    """Translate the original repository's key names in place: a key with a
+    counterpart fills it unless the YAML sets it too, a ``{width, height}``
+    resolution becomes ``[w, h]`` and a ``[w, h]`` input size the square
+    letterbox side ``max(w, h)``."""
+    for (section, ref_key), ours in _REFERENCE_ALIASES.items():
+        sec = raw.get(section)
+        if not isinstance(sec, dict) or ref_key not in sec:
+            continue
+        value = sec.pop(ref_key)
+        if ours is None:
+            logger.info(f"config: reference key {section}.{ref_key} has no "
+                        "counterpart here; ignored")
+        else:
+            sec.setdefault(ours, value)
+            logger.info(f"config: reference key {section}.{ref_key} -> {section}.{ours}")
+    # sections may be present but empty ('ingestion:' alone parses as None)
+    res = (raw.get("ingestion") or {}).get("resolution")
+    if isinstance(res, dict):
+        raw["ingestion"]["resolution"] = [res.get("width"), res.get("height")]
+    size = (raw.get("detection") or {}).get("input_size")
+    if isinstance(size, (list, tuple)):
+        raw["detection"]["input_size"] = int(max(size))
+        logger.info(f"config: reference detection.input_size {list(size)} -> "
+                    f"square {raw['detection']['input_size']} (letterbox side)")
+    return raw
 
 
 def load_yaml(path: str) -> dict[str, Any]:
@@ -376,9 +435,10 @@ def _deep_merge(base: dict, over: dict) -> dict:
 
 def load_config(path: str | None = None,
                 overrides: dict[str, Any] | None = None) -> PipelineConfig:
-    """Load and validate a config: the YAML at ``path`` (or ``DEFAULTS``)
-    with the nested ``overrides`` dict merged on top."""
-    raw = load_yaml(path) if path else DEFAULTS
+    """Load and validate a config: the YAML at ``path`` (or ``DEFAULTS``),
+    its reference key names translated, with the nested ``overrides`` dict
+    merged on top."""
+    raw = _apply_reference_aliases(copy.deepcopy(load_yaml(path) if path else DEFAULTS))
     raw = copy.deepcopy(_deep_merge(raw, overrides or {}))
     skipped = sorted(set(raw) - set(_SECTIONS))
     if skipped:
@@ -420,6 +480,14 @@ def validate(cfg: PipelineConfig) -> None:
         if bad:
             raise ValueError(f"detection.classes entries must be ints in [0, "
                              f"{d.num_classes}), got {bad}")
+    if d.quant not in ("none", "int8"):
+        raise ValueError(f"detection.quant must be none|int8, got {d.quant}")
+    if d.quant == "int8" and not d.fuse_bn:
+        raise ValueError("detection.quant=int8 requires detection.fuse_bn=true "
+                         "(quantization folds conv+BN+SiLU)")
+    if d.quant_scales and d.quant != "int8":
+        raise ValueError("detection.quant_scales (QAT frozen scales) requires "
+                         "detection.quant=int8")
     if d.nms_impl not in ("fixpoint", "pallas", "auto"):
         raise ValueError(f"detection.nms_impl must be fixpoint|pallas|auto, got {d.nms_impl!r}")
     t = cfg.tracking
@@ -446,6 +514,10 @@ def validate(cfg: PipelineConfig) -> None:
     tr = cfg.parallel.transport
     if tr not in ("packed", "x6", "x24", "i420", "bgr"):
         raise ValueError(f"parallel.transport must be packed|x6|x24|i420|bgr, got {tr!r}")
+    if tr in ("x6", "x24") and d.quant != "none":
+        raise ValueError(f"parallel.transport={tr} requires detection.quant=none (the "
+                         "reference's int8 path wraps the modules its space-to-depth "
+                         "front bypasses); use transport=packed for auto")
     if tr in ("x6", "x24") and t.algorithm in ("deepsort", "botsort"):
         raise ValueError(f"parallel.transport={tr} is incompatible with tracking.algorithm="
                          f"{t.algorithm!r}: appearance trackers need the Y/U/V planes back "
@@ -482,9 +554,11 @@ def validate(cfg: PipelineConfig) -> None:
     if len(ds.crop_hw) != 2 or any(v <= 0 for v in ds.crop_hw):
         raise ValueError(f"tracking.deepsort.crop_hw must be [h, w] > 0, got {ds.crop_hw}")
     e = cfg.events
-    if e.alert.backend not in ("json_file", "webhook"):
-        raise ValueError(f"events.alert.backend={e.alert.backend!r} is not ported "
-                         "(json_file|webhook; mqtt is ROADMAP item 6)")
+    if e.alert.backend not in ("json_file", "webhook", "mqtt"):
+        raise ValueError("events.alert.backend must be json_file|webhook|mqtt, "
+                         f"got {e.alert.backend!r}")
+    if e.alert.backend == "mqtt" and not e.alert.mqtt_host:
+        raise ValueError("events.alert.backend=mqtt requires events.alert.mqtt_host")
     if e.alert.backend == "webhook" and not e.alert.webhook_url:
         raise ValueError("events.alert.backend=webhook requires events.alert.webhook_url")
     for z in e.zones:

@@ -11,6 +11,7 @@ coordinates, all on the detector's device.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -20,7 +21,7 @@ import torch
 
 from rtmodt_tpu_torch.config.loader import DetectionConfig, PipelineConfig
 from rtmodt_tpu_torch.device import resolve_device
-from rtmodt_tpu_torch.models.weights import is_fused, load_into, load_npz
+from rtmodt_tpu_torch.models.weights import is_fused, load_into, load_params
 from rtmodt_tpu_torch.models.yolov8 import YOLOv8, build_model
 from rtmodt_tpu_torch.ops.letterbox import letterbox, letterbox_meta, unletterbox_boxes
 from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
@@ -70,17 +71,17 @@ def init_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
             m.reset_running_stats()
 
 
-def build_detector(cfg: DetectionConfig | PipelineConfig, device: torch.device,
-                   seed: int = 0) -> YOLOv8:
-    """The inference model: the weights of ``detection.weights`` (else
-    ``fallback_weights``; a reference ``.npz``, BN folded or not), else random
-    weights from ``seed``; BN folded when ``fuse_bn``; bf16 when ``half``;
-    channels_last on the card."""
+def build_float_model(cfg: DetectionConfig | PipelineConfig, device: torch.device,
+                      seed: int = 0) -> YOLOv8:
+    """The float32 model in eval mode on ``device``: the weights of
+    ``detection.weights`` (else ``fallback_weights``; a reference ``.npz``, BN
+    folded or not, or an ultralytics ``.pt`` / ``.pth``), else random weights
+    from ``seed``; BN folded when ``fuse_bn``."""
     d = cfg.detection if isinstance(cfg, PipelineConfig) else cfg
     path = d.weights or d.fallback_weights
     if path:
         logger.info(f"loading weights from {path}")
-        flat = load_npz(path)
+        flat = load_params(path)
         if is_fused(flat) and not d.fuse_bn:
             raise ValueError(f"{path} has BN folded (e.g. a QAT checkpoint); "
                              "set detection.fuse_bn: true to load it")
@@ -94,10 +95,50 @@ def build_detector(cfg: DetectionConfig | PipelineConfig, device: torch.device,
     model.eval()
     if d.fuse_bn:
         model.fuse_bn()
-    model = model.to(device=device, dtype=torch.bfloat16 if d.half else torch.float32)
+    return model.to(device)
+
+
+def synthetic_calib_batches(d: DetectionConfig, device: torch.device) -> list[torch.Tensor]:
+    """The reference's synthetic int8 calibration: ``calib_frames`` uniform
+    NHWC batches of one from ``np.random.default_rng(0)``, in the compute
+    dtype."""
+    rng = np.random.default_rng(0)
+    s = d.input_size
+    dtype = torch.bfloat16 if d.half else torch.float32
+    return [torch.from_numpy(rng.random((1, s, s, 3), np.float32)).to(device, dtype)
+            for _ in range(max(1, d.calib_frames))]
+
+
+def deploy(model: torch.nn.Module, d: DetectionConfig, device: torch.device,
+           calib_batches: list[torch.Tensor] | None = None) -> torch.nn.Module:
+    """The inference model from the fused float32 ``model`` (left as it is
+    under int8): int8 per ``d.quant`` / ``d.quant_scales`` (calibrated on
+    ``calib_batches``, default the synthetic ones), bf16 when ``half``,
+    channels_last on the card."""
+    from rtmodt_tpu_torch.quant.ptq import (load_act_scales, quantize_model,
+                                            quantize_with_scales)
+
+    dtype = torch.bfloat16 if d.half else torch.float32
+    if d.quant == "int8" and d.quant_scales:
+        # frozen QAT scales: the deployed program computes what QAT optimized
+        logger.info(f"int8 with frozen QAT scales from {d.quant_scales}")
+        model = quantize_with_scales(model, load_act_scales(d.quant_scales), dtype)
+    elif d.quant == "int8":
+        model = quantize_model(model, calib_batches or synthetic_calib_batches(d, device),
+                               dtype=dtype)
+    else:
+        model = model.to(dtype=dtype)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def build_detector(cfg: DetectionConfig | PipelineConfig, device: torch.device,
+                   seed: int = 0) -> torch.nn.Module:
+    """The inference model of a config: ``build_float_model`` then
+    ``deploy``."""
+    d = cfg.detection if isinstance(cfg, PipelineConfig) else cfg
+    return deploy(build_float_model(d, device, seed), d, device)
 
 
 class Detector:
@@ -114,7 +155,10 @@ class Detector:
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self.cfg.half else torch.float32
         self.class_names = list(COCO_NAMES)[: self.cfg.num_classes]
-        self.model = build_detector(self.cfg, self.device, seed)
+        base = build_float_model(self.cfg, self.device, seed)
+        # int8 keeps the float32 build for calibrate() to quantize again
+        self._float_model = base if self.cfg.quant == "int8" else None
+        self.model = deploy(base, self.cfg, self.device)
         self._class_mask = None
         if self.cfg.classes:
             mask = torch.zeros(self.cfg.num_classes, dtype=torch.bool)
@@ -124,8 +168,15 @@ class Detector:
             self._warmup(warmup_shape or (640, 640))
 
     def calibrate(self, frames_bgr: list[np.ndarray]) -> None:
-        raise NotImplementedError("int8 (detection.quant, calibrate) is not ported: "
-                                  "ROADMAP item 10")
+        """Re-derive the int8 activation scales from real BGR frames,
+        letterboxed as inference letterboxes them, in place of the synthetic
+        (or frozen) ones."""
+        if self.cfg.quant != "int8":
+            raise ValueError("calibrate() only applies with detection.quant=int8")
+        batches = [self.preprocess(torch.as_tensor(f).to(self.device))[None]
+                   for f in frames_bgr]
+        d = dataclasses.replace(self.cfg, quant_scales=None)
+        self.model = deploy(self._float_model, d, self.device, calib_batches=batches)
 
     # -- the stages of one frame (Pipeline.step times them one by one) ----
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ centroid, frame_id, metadata), dwell >= ``dwell_time_sec`` with
 per-(track, zone) cooldowns, stream-time clocks by default.  It runs on the
 host in numpy: ``process`` over one frame's Track list (the per-frame
 paths), ``process_chunk`` over the ``(K, S)`` outputs of a chunk.  Alert
-backends: ``json_file`` and ``webhook`` (mqtt is ROADMAP item 6).
+backends: ``json_file``, ``webhook`` and ``mqtt`` (every logged event also
+published on ``mqtt_topic``, ``events/mqtt.py``).
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ class ZoneEventEngine:
             z.name: {"entries": 0, "tids": set()} for z in self.zones}
         # (track_id, zone_name) -> last_alert_time
         self._cooldown: dict[tuple[int, str], float] = {}
+        self._mqtt = None              # MQTTPublisher, made at the first event (backend: mqtt)
         # per-SLOT centroid history for the chunked array path (direction
         # gating): lazily sized to the tracker's slot count on first chunk
         self._trail_maxlen = trail_length
@@ -570,6 +572,12 @@ class ZoneEventEngine:
             f.write(evt.to_json() + "\n")
         if backend == "webhook" and self.alert.webhook_url:
             self._post_webhook(evt)
+        elif backend == "mqtt" and self.alert.mqtt_host:
+            if self._mqtt is None:
+                from rtmodt_tpu_torch.events.mqtt import MQTTPublisher
+
+                self._mqtt = MQTTPublisher(self.alert.mqtt_host, self.alert.mqtt_port)
+            self._mqtt.publish(self.alert.mqtt_topic, evt.to_json())
         logger.info(f"EVENT | {evt.event_type} | zone={evt.zone_name} "
                     f"track={evt.track_id} dwell={evt.dwell_time_sec:.1f}s")
 

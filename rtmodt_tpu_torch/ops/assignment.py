@@ -78,3 +78,12 @@ def greedy_assign(similarity: torch.Tensor, threshold: float,
     if not batched:
         row_to_col, col_to_row = row_to_col[0], col_to_row[0]
     return AssignResult(row_to_col, col_to_row, rounds)
+
+
+def greedy_assign_rounds(similarity: torch.Tensor, threshold: float,
+                         row_valid: torch.Tensor | None = None,
+                         col_valid: torch.Tensor | None = None) -> int:
+    """Mutual-best rounds until convergence (a scaling diagnostic): a thin
+    wrapper over ``greedy_assign``, so it cannot drift from the loop the
+    trackers run."""
+    return greedy_assign(similarity, threshold, row_valid, col_valid).rounds

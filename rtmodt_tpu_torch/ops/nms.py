@@ -15,6 +15,11 @@ Port of ``rtmodt_tpu/ops/nms.py``'s decode-after-top-k path
 Top-k is a stable descending sort, so equal values keep index order as
 ``lax.top_k`` does; ``topk_impl: approx`` is exact here, as it is on the
 reference's CPU backend.
+
+``nms_debug_from_logits`` is the reference's diagnostic (rounds, pool used,
+kept) over one frame: it runs the reference's fixpoint formulation of greedy
+suppression (``greedy_suppress_fixpoint``) in plain torch to count its
+rounds.  It is off the main path, where K1 suppresses.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from rtmodt_tpu_torch.models.yolov8 import REG_MAX, make_anchors
+from rtmodt_tpu_torch.ops.iou import pairwise_iou
 from rtmodt_tpu_torch.ops.nms_kernel import greedy_suppress
 
 CLASS_OFFSET = 7680.0  # > any letterboxed coordinate; class-aware suppression
@@ -125,3 +131,50 @@ def batched_nms_from_logits(box_dist: torch.Tensor, cls_logits: torch.Tensor,
         box_dist, cls_logits, input_size, conf_thresh, num_candidates, class_mask)
     return suppress_and_pack(cand_boxes, cand_scores, cand_classes, iou_thresh,
                              max_det, agnostic)
+
+
+def greedy_suppress_fixpoint(iou: torch.Tensor, scores: torch.Tensor, iou_thresh: float
+                             ) -> tuple[torch.Tensor, int]:
+    """Exact greedy suppression of score-sorted candidates as the reference's
+    fixpoint iteration (``rtmodt_tpu/ops/nms.py::_greedy_suppress``): with
+    ``conflict[i, j] = i < j and iou > t and score_i > 0``, iterate ``keep[j]
+    = not any_i(conflict[i, j] and keep[i])`` from all-kept until it stops
+    changing (at most K rounds).  Returns (keep (K,) bool, rounds): the
+    rounds the reference counts, 1 for the first step plus one per step that
+    changed ``keep``."""
+    k = iou.shape[0]
+    upper = torch.ones((k, k), dtype=torch.bool, device=iou.device).triu(1)
+    conflict = upper & (iou > iou_thresh) & (scores[:, None] > 0.0)
+
+    def step(keep: torch.Tensor) -> torch.Tensor:
+        return ~(conflict & keep[:, None]).any(dim=0)
+
+    prev = torch.ones(k, dtype=torch.bool, device=iou.device)
+    keep, rounds = step(prev), 1
+    while rounds < k and bool((keep != prev).any()):
+        keep, prev = step(keep), keep
+        rounds += 1
+    return keep, rounds
+
+
+def nms_debug_from_logits(box_dist: torch.Tensor, cls_logits: torch.Tensor,
+                          input_size: int, conf_thresh: float, iou_thresh: float,
+                          num_candidates: int = 300,
+                          class_mask: torch.Tensor | None = None,
+                          agnostic: bool = False) -> tuple[int, int, int]:
+    """Diagnostics of one frame's NMS (``box_dist`` (A, 4*REG_MAX),
+    ``cls_logits`` (A, C)): (fixpoint rounds until convergence, candidates
+    past the confidence gate, survivors of suppression), as the reference's
+    ``nms_debug_from_logits`` returns them."""
+    cand_boxes, cand_scores, cand_classes, _ = candidates_from_logits(
+        box_dist[None], cls_logits[None], input_size, conf_thresh, num_candidates,
+        class_mask)
+    cand_boxes, cand_scores, cand_classes = cand_boxes[0], cand_scores[0], cand_classes[0]
+    if agnostic:
+        offset_boxes = cand_boxes
+    else:
+        offset_boxes = cand_boxes + (cand_classes.float() * CLASS_OFFSET)[:, None]
+    keep, rounds = greedy_suppress_fixpoint(pairwise_iou(offset_boxes, offset_boxes),
+                                            cand_scores, iou_thresh)
+    keep = keep & (cand_scores > 0.0)
+    return rounds, int((cand_scores > 0.0).sum()), int(keep.sum())

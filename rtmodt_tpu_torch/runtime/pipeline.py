@@ -18,7 +18,11 @@ Port of ``rtmodt_tpu/runtime/pipeline.py`` (one stream).  Execution modes:
     content Y plane.  The trackers' greedy assignment syncs the host on
     every round (``ops/assignment.py``), so the window holds back only the
     host's half of each frame (events, render) and overlaps no device work;
-    a sync-free tracker (ROADMAP §1b) would make it real;
+    a sync-free tracker (ROADMAP §1b) would make it real.  With
+    ``parallel.transport: bgr`` the loop runs the reference's fused BGR
+    program instead (``step``, or ``submit`` in the window): GMC on the
+    source frame, the BGR letterbox, forward, NMS and the tracker, with
+    appearance crops from the letterboxed image;
   * chunked (``run_chunked``): K frames per chunk, packed to pinned host
     buffers; the forward, NMS, crops and embedder run batched over the
     chunk, GMC and the tracker once per frame in order, and the host runs
@@ -382,9 +386,11 @@ class Pipeline:
                                  if self._is_appearance else None)
                         self.tracker.step(res.boxes, res.scores, res.classes, res.valid,
                                           feats)
-                else:
+                elif self._use_packed_transport():
                     planes, _ = pack_chunk(dummy[None], self.cfg.detection.input_size)
                     self._packed_program(planes, h, w)
+                else:
+                    self.submit(dummy)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.tracker.state, self._gmc_carry = found
@@ -433,24 +439,42 @@ class Pipeline:
                 tracks = self.tracker.tracks_from_outputs(outputs, det.class_names)
             p.tock("tracking")
         else:
-            # the reference's fused BGR program: GMC on the source frame,
-            # appearance crops from the letterboxed image
             p.tick("inference")
-            fdev = torch.from_numpy(frame).to(self.device)
-            if self._gmc_on:
-                self._gmc(fdev, (w / g, h / g))
-            img = det.preprocess(fdev)
-            res = det.nms_letterboxed(det.forward(img))
-            feats = (self.tracker.embed_fn(normalized=True)(img, res.boxes)
-                     if self._is_appearance else None)
-            res = det.to_source(res, h, w)
-            outputs = self.tracker.step(res.boxes, res.scores, res.classes, res.valid, feats)
+            outputs, res = self.submit(frame)
             tracks = self.tracker.tracks_from_outputs(outputs, det.class_names)
             p.tock("inference")
         p.tick("events")
         events = self.events.process(tracks, frame_id, timestamp) if self.events else []
         p.tock("events")
         return tracks, events, res
+
+    @torch.no_grad()
+    def submit(self, frame: np.ndarray) -> tuple[TrackOutputs, NMSResult]:
+        """The reference's fused BGR per-frame program up to the tracker's
+        outputs (``transport: bgr``, and ``step`` off the per-stage path): GMC
+        on the source frame, the BGR letterbox, the forward, NMS (K1 at B =
+        1), appearance crops from the letterboxed image, the tracker.  Not
+        asynchronous: the tracker's assignment rounds sync the host.
+        Returns the device (TrackOutputs, NMSResult) of the frame."""
+        det = self.detector
+        h, w = frame.shape[:2]
+        g = self.cfg.tracking.gmc.grid
+        fdev = torch.from_numpy(frame).to(self.device)
+        if self._gmc_on:
+            self._gmc(fdev, (w / g, h / g))
+        img = det.preprocess(fdev)
+        res = det.nms_letterboxed(det.forward(img))
+        feats = (self.tracker.embed_fn(normalized=True)(img, res.boxes)
+                 if self._is_appearance else None)
+        res = det.to_source(res, h, w)
+        return self.tracker.step(res.boxes, res.scores, res.classes, res.valid, feats), res
+
+    def _use_packed_transport(self) -> bool:
+        """The per-frame loop packs I420 unless ``transport: bgr`` asks for
+        the BGR program; per-stage and host-tracker modes keep the BGR
+        stages (the reference's rule)."""
+        return (self.cfg.parallel.transport in ("packed", "x6", "x24", "i420")
+                and not self._per_stage and not self._host_tracker)
 
     def submit_packed_frame(self, frame: np.ndarray) -> tuple[TrackOutputs, NMSResult]:
         """The packed per-frame step up to the tracker's outputs: the host
@@ -525,8 +549,9 @@ class Pipeline:
             monitor = LiveMonitor(vcfg.mjpeg_port)
         zones = self.events.get_zone_polygons() if self.events else []
         names = self.detector.class_names
-        per_frame_step = self._per_stage or self._host_tracker
-        depth = 0 if per_frame_step else max(0, self.cfg.parallel.pipeline_depth)
+        packed = self._use_packed_transport()
+        depth = (0 if self._per_stage or self._host_tracker
+                 else max(0, self.cfg.parallel.pipeline_depth))
         inflight: deque = deque()
         frames = skipped = consumed = snaps_done = 0
         last_ts = 0.0
@@ -603,14 +628,15 @@ class Pipeline:
                         # overlaps); events and render of the oldest frame wait
                         # until the window is full
                         p.tick("inference")
-                        outputs, _ = self.submit_packed_frame(frame)
+                        outputs, _ = (self.submit_packed_frame(frame) if packed
+                                      else self.submit(frame))
                         p.tock("inference")
                         inflight.append((frame, fid, ts, outputs))
                         if len(inflight) > depth and not consume(inflight.popleft()):
                             break
                     else:
-                        tracks, _, _ = (self.step(frame, fid, ts) if per_frame_step
-                                        else self.step_packed(frame, fid, ts))
+                        tracks, _, _ = (self.step_packed(frame, fid, ts) if packed
+                                        else self.step(frame, fid, ts))
                         if not finish(frame, tracks, ts):
                             break
                     frames += 1

@@ -21,7 +21,8 @@ class_name}], tracks, inference_ms, num_objects, image_size: [w, h]}``.
 
 Inference runs the port's ``Detector`` (YOLOv8, NMS with the CUDA kernel K1
 once per frame) built lazily on the card from ``RTMODT_MODEL`` /
-``RTMODT_WEIGHTS``; without a card the first request fails (HTTP 500)
+``RTMODT_WEIGHTS`` (a reference ``.npz`` or an ultralytics ``.pt`` /
+``.pth``, ``models/weights.py::load_params``); without a card the first request fails (HTTP 500)
 unless a caller has injected a detector with ``_singleton.set``.  Every
 tracker the server builds lives on the served detector's device.  Serving
 is the stdlib WSGI stack in ``wsgi.py``, a thread per request; the

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
+from tests.test_torch_port_threads import child_env, torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "checkpoints", "rich640d", "ema_final.npz")
@@ -48,7 +49,8 @@ def _config(tmp, name: str) -> str:
 
 def _cli(tool: str, *args: str, timeout: int = 600) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, os.path.join(ROOT, "tools", tool), *args],
-                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env=child_env())
 
 
 def _events(path: str) -> list[dict]:

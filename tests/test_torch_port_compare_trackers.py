@@ -21,6 +21,7 @@ import tools.compare_trackers as ref_tool
 import tools.compare_trackers_torch as port_tool
 from rtmodt_tpu.models.embedder import _flatten as jax_flatten
 from rtmodt_tpu.models.embedder import init_embedder as jax_init_embedder
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 EMBEDDER = "checkpoints/embedder.npz"
 SCENARIOS = {"bounce": 12, "stopgo": 12, "shake": 8, "dense": 6}

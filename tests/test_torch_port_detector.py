@@ -29,6 +29,7 @@ from rtmodt_tpu_torch.config.loader import DetectionConfig
 from rtmodt_tpu_torch.detection.detector import Detections, Detector
 from rtmodt_tpu_torch.ops.letterbox import letterbox, unletterbox_boxes
 from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "checkpoints", "rich640d", "ema_final.npz")
@@ -93,5 +94,10 @@ def test_detect_device_is_fixed_shape_and_empty_frames_are_empty(detectors):
 
 
 def test_int8_calibration_is_not_ported(detectors):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    """``calibrate`` outside int8 raises as the reference's does (int8 itself:
+    tests/test_torch_port_quant.py)."""
+    with pytest.raises(ValueError, match="int8") as port_err:
         detectors[0].calibrate([np.zeros((64, 64, 3), np.uint8)])
+    with pytest.raises(ValueError, match="int8") as ref_err:
+        detectors[1].calibrate([np.zeros((64, 64, 3), np.uint8)])
+    assert str(port_err.value) == str(ref_err.value)

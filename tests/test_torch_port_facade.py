@@ -28,6 +28,7 @@ from rtmodt_tpu_torch.detection.detector import Detections
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker, Track
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 NAMES = ["person", "bicycle", "car", "motorcycle"]
 N_FRAMES, FPS = 40, 25.0

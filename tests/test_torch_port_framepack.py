@@ -29,6 +29,7 @@ from rtmodt_tpu.ops.yuv import pack_i420_planar as jax_pack_i420_planar
 from rtmodt_tpu_torch import _build
 from rtmodt_tpu_torch.ops import framepack as fp
 from rtmodt_tpu_torch.ops import yuv
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 # (src_h, src_w, content h, content w, integer factor)
 NATIVE_GEOMETRIES = [

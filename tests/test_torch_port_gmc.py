@@ -47,6 +47,7 @@ from rtmodt_tpu_torch.tracking.bytetrack import TrackState
 from rtmodt_tpu_torch.tracking.deepsort import DeepSortState
 from rtmodt_tpu_torch.tracking.ocsort import OCSortState
 from tests.test_gmc import _circular_shift, _noise_field
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 EMBEDDER = "checkpoints/embedder.npz"
 

@@ -17,6 +17,7 @@ import sys
 
 import pytest
 import torch
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,13 +30,19 @@ for n in names:
 importlib.import_module("tools.run_pipeline_torch")
 importlib.import_module("tools.compare_trackers_torch")
 importlib.import_module("tools.run_inference_torch")
+importlib.import_module("tools.verify_parity_torch")
 importlib.import_module("start_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
+from rtmodt_tpu_torch.models import weights
+fns = [f for f in ("convert_ultralytics_state_dict", "load_ultralytics_pt", "load_params",
+                   "save_npz", "_tolerant_torch_load", "_walk_module_state")
+       if callable(getattr(weights, f, None))]
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "flax"))
              or k == "rtmodt_tpu" or k.startswith("rtmodt_tpu."))
-print(json.dumps({"modules": names, "bad": bad, "click": "click" in sys.modules,
+print(json.dumps({"modules": names, "bad": bad, "weights_fns": fns,
+                  "click": "click" in sys.modules,
                   "cv2": "cv2" in sys.modules, "yaml": "yaml" in sys.modules}))
 """
 
@@ -68,8 +75,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.serving.wsgi", "rtmodt_tpu_torch.serving.server",
                 "rtmodt_tpu_torch.serving.monitor", "rtmodt_tpu_torch.tracking.postprocess",
                 "rtmodt_tpu_torch.evaluation.coco_eval", "rtmodt_tpu_torch.evaluation.metrics",
-                "rtmodt_tpu_torch.runtime.state_store", "rtmodt_tpu_torch.ops.polygon"):
+                "rtmodt_tpu_torch.runtime.state_store", "rtmodt_tpu_torch.ops.polygon",
+                "rtmodt_tpu_torch.quant", "rtmodt_tpu_torch.quant.ptq",
+                "rtmodt_tpu_torch.ops.int8_conv", "rtmodt_tpu_torch.events.mqtt"):
         assert mod in out["modules"]
+    assert len(out["weights_fns"]) == 6        # the .pt route and save_npz, in the port
 
 
 def test_multistream_and_packer_import_no_jax_cv2_or_yaml():

@@ -50,6 +50,7 @@ from rtmodt_tpu_torch.config import load_config
 from rtmodt_tpu_torch.ops import nms_kernel
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H, W, SIZE, N_FRAMES, FPS = 288, 512, 256, 16, 25.0
 CLASSES = [0, 1, 2, 3, 5, 7]

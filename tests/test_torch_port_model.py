@@ -25,6 +25,7 @@ from rtmodt_tpu.models.yolov8 import build_model as jax_build
 from rtmodt_tpu.models.yolov8 import make_anchors as jax_anchors
 from rtmodt_tpu_torch.models.weights import is_fused, load_into, load_npz, params_from_jax
 from rtmodt_tpu_torch.models.yolov8 import build_model, make_anchors
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

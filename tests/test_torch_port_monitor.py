@@ -26,6 +26,7 @@ from rtmodt_tpu.config.loader import load_config as jax_load_config
 from rtmodt_tpu_torch.config import load_config
 from rtmodt_tpu_torch.serving.monitor import LiveMonitor
 from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H, W, N_FRAMES = 96, 160, 6
 

@@ -39,6 +39,7 @@ from rtmodt_tpu_torch.parallel.multistream import MosaicAnnotator, MultiStreamPi
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
 from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame, write_synthetic_video
+from tests.test_torch_port_threads import child_env, torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "checkpoints", "rich640d", "ema_final.npz")
@@ -308,7 +309,7 @@ def test_cli_runs_two_sources(clips, tmp_path):
     proc = subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "run_pipeline_torch.py"), "-c", str(path),
          "-s", clips["a"], "-s", clips["b"], "--max-frames", "4"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cwd=ROOT, capture_output=True, text=True, timeout=600, env=child_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "per_stream_frames: [4, 4]" in proc.stdout
     assert "streams: 2" in proc.stdout and "zone_counts" in proc.stdout

@@ -29,6 +29,7 @@ from rtmodt_tpu_torch.ops.assignment import greedy_assign
 from rtmodt_tpu_torch.ops.gmc import compensate, gmc_step, init_carry, phase_shift
 from rtmodt_tpu_torch.parallel.multistream import init_multistream_state
 from rtmodt_tpu_torch.tracking.bytetrack import bytetrack_update, init_track_state
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 S, D, FRAMES = 3, 16, 10
 

@@ -27,6 +27,7 @@ from rtmodt_tpu_torch.ops.nms import (CLASS_OFFSET, batched_nms_from_logits,
 from rtmodt_tpu_torch.ops.nms_kernel import greedy_suppress, greedy_suppress_reference
 from tests.conftest import random_boxes
 from tests.test_pallas_kernels import np_greedy_nms_keep
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _case(name: str, seed: int, n: int = 64):

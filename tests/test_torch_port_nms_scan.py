@@ -20,6 +20,7 @@ import torch
 from rtmodt_tpu_torch.ops.nms_kernel import greedy_suppress_reference
 from tests.test_pallas_kernels import np_greedy_nms_keep
 from tests.test_torch_port_kernels import nms_case
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 LANES = 32
 THREADS = 1024         # the kernel's CTA: one thread per candidate

@@ -24,6 +24,7 @@ from rtmodt_tpu_torch.ops import kalman as tkf
 from rtmodt_tpu_torch.ops import yuv as tyuv
 from rtmodt_tpu_torch.ops.assignment import greedy_assign
 from tests.conftest import random_boxes
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 GEOMETRIES = [(720, 1280, 640), (1080, 1920, 640), (480, 640, 320), (144, 256, 128),
               (361, 641, 256)]
@@ -169,17 +170,16 @@ def test_config_loads_reference_yaml_and_rejects_unported_settings():
 
     cfg = load_config(default_config_path(), overrides={"parallel": {"chunk_size": 16}})
     assert cfg.parallel.chunk_size == 16 and cfg.detection.model == "yolov8s"
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):            # mqtt needs its broker, as in the reference
         load_config(overrides={"events": {"alert": {"backend": "mqtt"}}})
-    with pytest.raises(ValueError):
-        load_config(overrides={"detection": {"quant": "int8"}})
+    with pytest.raises(ValueError):            # int8 folds BN, as in the reference
+        load_config(overrides={"detection": {"quant": "int8", "fuse_bn": False}})
     with pytest.raises(KeyError):
         load_config(overrides={"detection": {"no_such_key": 1}})
 
 
 @pytest.mark.parametrize("section,key,accepted,refused", [
     ("detection", "topk_impl", "approx", "fast"),
-    ("detection", "quant", "none", "int8"),
 ])
 def test_config_drops_reference_only_keys_and_refuses_unported_values(
         section, key, accepted, refused):

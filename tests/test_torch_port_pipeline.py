@@ -51,6 +51,7 @@ from rtmodt_tpu_torch.ops import nms_kernel
 from rtmodt_tpu_torch.ops.yuv import pack_chunk
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H, W, SIZE, K, N_FRAMES, FPS = 288, 512, 256, 4, 8, 30.0
 CONF = 0.35

@@ -66,6 +66,7 @@ from rtmodt_tpu.utils.coco_names import COCO_NAMES
 from rtmodt_tpu_torch.config import load_config
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H, W, SIZE, K, N_FRAMES, FPS = 288, 512, 256, 3, 6, 25.0
 CONF = 0.35

@@ -24,6 +24,7 @@ from rtmodt_tpu.profiling.latency_profiler import LatencyProfiler as JaxProfiler
 from rtmodt_tpu_torch.config import load_config
 from rtmodt_tpu_torch.device import config_device
 from rtmodt_tpu_torch.profiling.latency_profiler import STAGES, LatencyProfiler
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _drive(profiler, sync, monkeypatch, n_frames=40):

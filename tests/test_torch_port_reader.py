@@ -19,6 +19,7 @@ from rtmodt_tpu.ingestion.rtsp_reader import RTSPReader as JaxReader
 from rtmodt_tpu.utils.synthetic import write_synthetic_video as jax_write_video
 from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
 from rtmodt_tpu_torch.utils.synthetic import write_synthetic_video
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 N_FRAMES, H, W, FPS = 14, 96, 160, 25.0
 

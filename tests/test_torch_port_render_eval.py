@@ -23,6 +23,7 @@ from rtmodt_tpu_torch.evaluation.mot_eval import evaluate_hota, evaluate_mot, lo
 from rtmodt_tpu_torch.tracking.tracker import Track
 from rtmodt_tpu_torch.utils.synthetic import dense_moving_scene, moving_boxes_frame
 from rtmodt_tpu_torch.visualization.renderer import FrameRenderer
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 ZONES = [("restricted", np.array([[40, 60], [300, 60], [300, 250], [40, 250]], np.int32)),
          ("gate", np.array([[320, 20], [500, 40], [480, 270], [340, 200]], np.int32))]

@@ -30,6 +30,7 @@ from rtmodt_tpu.tracking.tracker import MultiObjectTracker as JaxTracker
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
 from rtmodt_tpu_torch.runtime import state_store
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 ALGORITHMS = ("bytetrack", "ocsort", "deepsort", "botsort")
 D, E = 8, 128

@@ -45,6 +45,7 @@ from rtmodt_tpu.tracking.bytetrack import init_track_state as jax_init
 from rtmodt_tpu.utils.synthetic import write_synthetic_video
 from rtmodt_tpu_torch.config import load_config
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H, W, SIZE, K, N_FRAMES, FPS = 288, 512, 256, 4, 14, 25.0
 CONF = 0.35

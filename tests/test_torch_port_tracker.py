@@ -25,6 +25,7 @@ from rtmodt_tpu.tracking.bytetrack import init_track_state as jax_init
 from rtmodt_tpu_torch.config.loader import ByteTrackConfig
 from rtmodt_tpu_torch.tracking.bytetrack import (bytetrack_update, claim_free_slots,
                                                  init_track_state)
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 D = 8
 

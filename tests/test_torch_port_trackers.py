@@ -43,6 +43,7 @@ from rtmodt_tpu_torch.tracking import ocsort as tos
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
 from tests.test_gmc import _shake_scene
 from tests.test_torch_port_facade import _same_tracks, scene
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 NAMES = ["person", "bicycle", "car", "motorcycle"]
 EMBED = 16

@@ -41,6 +41,7 @@ from rtmodt_tpu_torch.detection.detector import Detections, Detector
 from rtmodt_tpu_torch.serving.wsgi import Request
 from rtmodt_tpu_torch.serving.wsgi import TestClient as Client
 from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame, write_synthetic_video
+from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "checkpoints", "rich640d", "ema_final.npz")

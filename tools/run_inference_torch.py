@@ -13,7 +13,9 @@ subcommands and flags (and ``--cpu``: the card by default):
     gaps offline (``--interpolate MAX_GAP``), then optionally evaluate
     IDF1 / MOTA against a GT file (``--gt-mot``).
 
-``--quant int8`` is not ported (ROADMAP item 10) and exits non-zero.
+``detect --quant int8`` deploys the int8 path (``rtmodt_tpu_torch/quant/ptq.py``):
+synthetic post-training calibration, or the frozen QAT scales of
+``--quant-scales``.
 
     python tools/run_inference_torch.py detect --images img/ --gt-json gt.json --evaluate
     python tools/run_inference_torch.py track --video clip.mp4 --gt-mot gt.txt --interpolate 20
@@ -46,9 +48,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     d.add_argument("--input-size", default=640, type=int)
     d.add_argument("--conf", default=0.001, type=float, help="low conf for mAP sweeps")
     d.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8 is not ported (ROADMAP item 10)")
+                   help="int8 deploys the PTQ/QAT path (rtmodt_tpu_torch/quant/ptq.py)")
     d.add_argument("--quant-scales", default=None,
-                   help="QAT frozen activation scales (int8 only)")
+                   help="qat_act_scales.npz: QAT frozen activation scales (int8 only)")
     d.add_argument("--evaluate", dest="do_eval", action="store_true")
 
     t = sub.add_parser("track", help="Detect+track over a video -> MOT15-2D rows "
@@ -85,18 +87,18 @@ def detect(args: argparse.Namespace) -> dict | None:
     from rtmodt_tpu_torch.detection.detector import Detector
     from rtmodt_tpu_torch.utils.logging import logger
 
-    if args.quant == "int8":
-        raise SystemExit("run_inference_torch: --quant int8 is not ported: ROADMAP item 10")
-    if args.quant_scales:
+    if args.quant_scales and args.quant != "int8":
         raise SystemExit("run_inference_torch: --quant-scales (QAT frozen scales) "
                          "requires --quant int8")
     try:
         det = Detector(DetectionConfig(
             model=args.model, weights=args.weights, num_classes=args.num_classes,
             input_size=args.input_size, conf_threshold=args.conf, classes=None,
-            max_detections=300, nms_candidates=1000),
+            max_detections=300, nms_candidates=1000, quant=args.quant,
+            quant_scales=args.quant_scales),
             device="cpu" if args.cpu else "cuda", warmup=False)
-    except RuntimeError as e:     # asked for the card where there is none
+    except (RuntimeError, FileNotFoundError) as e:   # no card; a missing weights or
+                                                     # scales file
         raise SystemExit(f"run_inference_torch: {e}")
 
     images = args.images
@@ -173,7 +175,8 @@ def track(args: argparse.Namespace) -> dict | None:
     })
     try:
         pipe = Pipeline(cfg)
-    except RuntimeError as e:     # asked for the card where there is none
+    except (RuntimeError, FileNotFoundError) as e:   # no card; a missing weights or
+                                                     # scales file
         raise SystemExit(f"run_inference_torch: {e}")
 
     video = args.video
