@@ -104,7 +104,24 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      payloads equal; (g) rich640d as ultralytics-named ``.pt`` (tensors, and a
      pickled model of unimportable classes): detections bit-equal to the
      ``.npz`` route; (h) ``run_inference_torch detect --quant int8``: mAP@0.5
-     beside phase 9's bf16.
+     beside phase 9's bf16;
+ 12. what the port uses to see itself: (a) phase 5's chunked run with
+     ``profiling.trace_dir`` (``trace_frames`` 4): one trace file, its device
+     ms/frame (``trace_summary.device_total_ms``) beside phase 5's profiler
+     reading, K1 in it once per traced chunk, the capture stopped after the
+     run, K1 bit for bit on every chunk of a second run; (b)
+     ``tools/trace_chunk_torch.py --attribute`` in a child process: the
+     top-10 device ops and the convolutions' TFLOP/s; (c)
+     ``tools/export_model_torch.py``: the ``.pt2`` program at B = 16 in bf16
+     (seconds, bytes, load ms) against the module on one chunk's letterboxed
+     input, and the ``npz`` export reloaded: detections bit-equal; (d)
+     ``benchmark_torch`` (chunked, per stage), ``bench_latency_torch`` and
+     ``bench_dense_torch --trace`` at densities 8 and 64, cut short, each
+     tool's JSON and K1 launches; K1 bit for bit and timed on the 64-object
+     chunk's 512 candidates; (e) the cold start in a fresh process: imports,
+     CUDA init, the kernel cache, weights, the first chunk program, warmup;
+     then in a second process on the CUDA JIT cache the first one filled,
+     and in one with ``CUDA_MODULE_LOADING=EAGER``.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -195,6 +212,14 @@ INT8_PEAK = 1979e12    # H100 SXM dense int8, operations/s
 BF16_PEAK = 989e12     # H100 SXM dense bf16, FLOP/s
 BGR_FRAMES = 48        # frames of the 25-fps file through each per-frame bgr run
 PT_FRAMES = 4          # phase-5 frames detected through the .pt and .npz routes
+# phase 12: device traces, the trace and benchmark tools, export, cold start
+TRACE_FRAMES = 4       # profiling.trace_frames of the traced chunked run: 4 chunks
+TRACE_TOL = 0.12       # the trace's device ms/frame against phase 5's profiler reading
+TOOL_ITERS = 4         # trace_chunk_torch --iters
+BENCH_CHUNK_FRAMES = 64     # benchmark_torch --mode chunked (reference default 200)
+BENCH_STAGE_FRAMES = 48     # benchmark_torch --mode per_stage (reference default 200)
+LATENCY_FRAMES = 120        # bench_latency_torch --frames (reference default 300)
+DENSE_DENSITIES, DENSE_REPS = "8,64", 4   # bench_dense_torch (reference 8,32,64,128 and 8)
 
 
 def phase(msg: str) -> None:
@@ -2160,6 +2185,30 @@ def _save_pickled_model(state: dict[str, torch.Tensor], path: str) -> None:
         del sys.modules[mod.__name__]
 
 
+def _k1_checked_run(pipe, frames: np.ndarray) -> dict:
+    """``pipe.run_chunked`` over ``frames`` after a reset, every K1 launch
+    held to its plain version: {"calls", "mismatches"}."""
+    from rtmodt_tpu_torch.ops import nms, nms_kernel
+
+    checked = {"calls": 0, "mismatches": 0}
+    inner = nms.greedy_suppress
+
+    def checking(boxes, scores, iou):
+        keep = inner(boxes, scores, iou)
+        want = nms_kernel.greedy_suppress_reference(boxes, scores, iou)
+        checked["calls"] += 1
+        checked["mismatches"] += int((keep.cpu() != want.cpu()).sum())
+        return keep
+
+    nms.greedy_suppress = checking
+    try:
+        pipe.reset()
+        pipe.run_chunked(list(frames))
+    finally:
+        nms.greedy_suppress = inner
+    return checked
+
+
 def int8_paths(smi: str, frames: np.ndarray, bf16: dict, detect_map: float) -> dict:
     """Phase 11: int8 (synthetic PTQ chunked, the int8 GEMM against its int64
     plain version, frozen QAT scales per stage, S = 2 streams, the offline
@@ -2175,7 +2224,7 @@ def int8_paths(smi: str, frames: np.ndarray, bf16: dict, detect_map: float) -> d
     from rtmodt_tpu_torch.detection.detector import Detector
     from rtmodt_tpu_torch.models.weights import load_into, load_npz
     from rtmodt_tpu_torch.models.yolov8 import build_model
-    from rtmodt_tpu_torch.ops import int8_conv, nms, nms_kernel
+    from rtmodt_tpu_torch.ops import int8_conv, nms_kernel
     from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
     from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
     from rtmodt_tpu_torch.quant.ptq import QuantizedConvBN, load_act_scales
@@ -2236,22 +2285,7 @@ def int8_paths(smi: str, frames: np.ndarray, bf16: dict, detect_map: float) -> d
     if not torch.isfinite(st.boxes[st.active]).all():
         fail("int8 run: non-finite track boxes")
     # K1 against its plain version on every chunk of a second run
-    checked = {"calls": 0, "mismatches": 0}
-    inner = nms.greedy_suppress
-
-    def checking(boxes, scores, iou):
-        keep = inner(boxes, scores, iou)
-        want = nms_kernel.greedy_suppress_reference(boxes, scores, iou)
-        checked["calls"] += 1
-        checked["mismatches"] += int((keep.cpu() != want.cpu()).sum())
-        return keep
-
-    nms.greedy_suppress = checking
-    try:
-        pipe.reset()
-        pipe.run_chunked(list(frames))
-    finally:
-        nms.greedy_suppress = inner
+    checked = _k1_checked_run(pipe, frames)
     out["mismatches"] += checked["mismatches"]
     print(f"  K1 against its plain version on each of the {checked['calls']} chunks: "
           f"mismatches {checked['mismatches']}", flush=True)
@@ -2510,6 +2544,406 @@ def int8_paths(smi: str, frames: np.ndarray, bf16: dict, detect_map: float) -> d
     return out
 
 
+def _k1_count(calls: dict) -> int:
+    """K1's launches in a trace's ``device_op_times`` call counts."""
+    return sum(n for name, n in calls.items() if "nms_greedy_kernel" in name)
+
+
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+_COLD_START = r"""
+t0 = time.perf_counter()
+import torch
+t_torch = time.perf_counter()
+sys.path.insert(0, ROOT)
+import rtmodt_tpu_torch
+from rtmodt_tpu_torch import _build
+from rtmodt_tpu_torch.config import load_config
+from rtmodt_tpu_torch.ops import nms_kernel
+from rtmodt_tpu_torch.ops.yuv import pack_chunk
+from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+from rtmodt_tpu_torch.utils.synthetic import moving_boxes_frame
+import numpy as np
+t_import = time.perf_counter()
+dev = torch.device(DEVICE)
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+if dev.type == "cuda":
+    torch.cuda.init()
+    torch.zeros(1, device=dev)
+    sync()
+t_cuda = time.perf_counter()
+libs = ["nms_kernel", "lapjv", "framepack"] if dev.type == "cuda" else ["lapjv", "framepack"]
+built = _build.build_all(libs)
+for name in libs:
+    _build.load(name)
+t_build = time.perf_counter()
+pipe = Pipeline(load_config(overrides=OVERRIDES), device=DEVICE)
+sync()
+t_weights = time.perf_counter()
+frames = np.stack([moving_boxes_frame(t, H, W, 8)[0] for t in range(K)])
+planes, _ = pack_chunk(frames, SIZE)
+det = pipe.detector
+t_frames = time.perf_counter()
+with torch.no_grad():
+    x = torch.zeros((1, 3, 32, 32), device=dev, dtype=det.dtype)
+    torch.nn.functional.conv2d(x.to(memory_format=torch.channels_last),
+                               torch.zeros((8, 3, 3, 3), device=dev, dtype=det.dtype))
+    sync()
+    t_conv = time.perf_counter()
+    img = torch.zeros((K, SIZE, SIZE, 3), device=dev, dtype=det.dtype)
+    det.model(img.permute(0, 3, 1, 2))
+    sync()
+t_forward = time.perf_counter()
+pipe.submit_packed_yuv(planes, H, W)
+sync()
+t_first = time.perf_counter()
+pipe.submit_packed_yuv(planes, H, W)
+sync()
+t_second = time.perf_counter()
+pipe.warmup((H, W))
+t_warmup = time.perf_counter()
+print(json.dumps({"import_torch_s": t_torch - t0, "import_port_s": t_import - t_torch,
+                  "cuda_init_s": t_cuda - t_import, "build_all_s": t_build - t_cuda,
+                  "built": sorted(built), "weights_and_model_s": t_weights - t_build,
+                  "first_conv_s": t_conv - t_frames, "first_forward_s": t_forward - t_conv,
+                  "first_chunk_s": t_first - t_forward, "second_chunk_s": t_second - t_first,
+                  "first_calls_s": t_first - t_frames, "warmup_s": t_warmup - t_second,
+                  "to_warm_s": t_warmup - t0 - (t_frames - t_weights),
+                  "k1_launches": nms_kernel.launches}))
+"""
+
+
+def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
+    """Phase 12: ``profiling.trace_dir`` on the chunked run, the trace and
+    benchmark tools, model export and the cold start.  ``five`` holds phase
+    5's config overrides, its chunk program's device ms (profiler) and the
+    first chunk's device planes and letterbox geometry.  Returns K1's
+    launches per run, its mismatches and the readings."""
+    import contextlib
+    import glob
+    import shutil
+
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.detection.detector import Detector
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
+    from rtmodt_tpu_torch.profiling.trace_summary import (device_op_times, device_total_ms,
+                                                          load_latest_trace)
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+    from rtmodt_tpu_torch.utils.synthetic import dense_moving_scene
+    from tools import bench_dense_torch, bench_latency_torch, benchmark_torch
+    from tools.export_model_torch import main as export_main
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    r: dict = {}
+    tool_dir = os.path.join(OUT_DIR, "tools12")
+    shutil.rmtree(tool_dir, ignore_errors=True)
+    os.makedirs(tool_dir)
+    dev_flag = ["--device", DEVICE]
+    model_flags = ["--weights", WEIGHTS, "--num-classes", "8"]
+    size_flags = ["--imgsz", str(SIZE), "--height", str(H), "--width", str(W)]
+    planes, meta = five["planes"], five["meta"]
+
+    # (a) profiling.trace_dir on phase 5's chunked run
+    tdir = os.path.join(tool_dir, "trace_dir")
+    log = os.path.join(OUT_DIR, "events_trace.jsonl")
+    _fresh(log)
+    over = dict(five["overrides"])
+    over["events"] = {**over["events"], "alert": {"log_path": log}}
+    over["profiling"] = {"trace_dir": tdir, "trace_frames": TRACE_FRAMES}
+    pipe = Pipeline(load_config(overrides=over), device=DEVICE)
+    host_planes = pack_chunk(frames[:K], SIZE)[0]
+    for _ in range(2):                                 # warm-up, not a traced call
+        pipe.submit_packed_yuv(host_planes, H, W)
+    pipe.reset()
+    _sync()
+    print(f"  (a) run_chunked with profiling.trace_dir, trace_frames {TRACE_FRAMES}: "
+          f"{N_CHUNKS} chunks of {K}", flush=True)
+    nms_kernel.launches = 0
+    summary = pipe.run_chunked(list(frames))
+    launches = nms_kernel.launches
+    out["launches"]["traced_chunk"] = {"launches": launches, "frames": summary["frames"]}
+    ts = pipe._trace_state
+    stopped = (ts.get("done") and not ts["active"] and "profiler" not in ts
+               and not torch._C._autograd._profiler_enabled())
+    files = glob.glob(os.path.join(tdir, "**", "*.trace.json.gz"), recursive=True)
+    events = load_latest_trace(tdir)
+    by_op, calls = device_op_times(events)
+    total_ms = device_total_ms(tdir, DEVICE)
+    traced = TRACE_FRAMES * K
+    k1_traced = _k1_count(calls)
+    n_events = len(_event_rows(log))
+    r["trace_dir"] = {"files": len(files), "device_ms_per_frame": total_ms / traced,
+                      "phase5_device_ms_per_frame": (None if five["chunk_dev_ms"] is None
+                                                     else five["chunk_dev_ms"] / K),
+                      "device_ops": len(by_op), "k1_in_trace": k1_traced, "stopped": stopped,
+                      "events": n_events, "fps": summary["fps"]}
+    print(f"  run: {summary['frames']} frames, {summary['chunks']} chunks, "
+          f"{summary['fps']:.2f} fps, {n_events} zone events; K1 launches {launches}; "
+          f"trace files {[os.path.relpath(f, tdir) for f in files]}; capture stopped: "
+          f"{stopped}", flush=True)
+    print(f"  trace: {len(by_op)} device ops, {sum(calls.values())} device events, "
+          f"{total_ms:.3f} ms over {traced} frames = {total_ms / traced:.4f} device ms/frame; "
+          f"phase 5's profiler device time in this call "
+          + ("not measured" if five["chunk_dev_ms"] is None
+             else f"{five['chunk_dev_ms'] / K:.4f} ms/frame (ratio "
+                  f"{total_ms / traced / (five['chunk_dev_ms'] / K):.4f})")
+          + f"; nms_greedy_kernel {k1_traced} of {TRACE_FRAMES} traced chunk launches",
+          flush=True)
+    if len(files) != 1 or not stopped:
+        fail(f"trace_dir: {len(files)} trace files, capture stopped {stopped}")
+    if launches != summary["chunks"] or summary["chunks"] != N_CHUNKS or n_events == 0:
+        fail(f"traced run: K1 launched {launches} times for {summary['chunks']} chunks, "
+             f"{n_events} events")
+    if DEVICE == "cuda":
+        if not by_op:
+            fail("the trace holds no device event (no CUDA lane)")
+        if not 0 < k1_traced <= TRACE_FRAMES:
+            fail(f"the trace holds {k1_traced} launches of nms_greedy_kernel for "
+                 f"{TRACE_FRAMES} traced chunks")
+        if k1_traced != TRACE_FRAMES:
+            print(f"  the trace lost {TRACE_FRAMES - k1_traced} of {TRACE_FRAMES} K1 "
+                  "launches", flush=True)
+        if five["chunk_dev_ms"] is not None and \
+                abs(total_ms / traced / (five["chunk_dev_ms"] / K) - 1) > TRACE_TOL:
+            fail(f"the trace's device ms/frame is more than {TRACE_TOL} from phase 5's")
+    # K1 against its plain version on every chunk of a second (untraced) run
+    checked = _k1_checked_run(pipe, frames)
+    out["mismatches"] += checked["mismatches"]
+    files = glob.glob(os.path.join(tdir, "**", "*.trace.json.gz"), recursive=True)
+    print(f"  K1 against its plain version on the {checked['calls']} chunks of a second run "
+          f"of the pipeline (no second capture: {len(files)} trace file): mismatches "
+          f"{checked['mismatches']}", flush=True)
+    if checked["calls"] != N_CHUNKS or checked["mismatches"] or len(files) != 1:
+        fail(f"traced path: K1 differs from its plain version ({checked}) or a second "
+             f"capture ran ({len(files)} files)")
+
+    # (b) trace_chunk_torch in a child process
+    tc_dir, tc_json = os.path.join(tool_dir, "trace_chunk"), os.path.join(tool_dir, "tc.json")
+    _, launches, seconds = _counted_subprocess("tools.trace_chunk_torch", [
+        "--iters", str(TOOL_ITERS), "--chunk", str(K), "--out", tc_dir, *model_flags,
+        *size_flags, *dev_flag, "--attribute", "--json", tc_json])
+    with open(tc_json) as f:
+        tc = json.load(f)
+    out["launches"]["trace_chunk_tool"] = {"launches": launches, "frames": (TOOL_ITERS + 2) * K}
+    tc_calls = tc["calls"]
+    tc_dev = device_total_ms(tc_dir, DEVICE) / (TOOL_ITERS * K)
+    print(f"  (b) trace_chunk_torch --iters {TOOL_ITERS} --attribute ({seconds:.1f} s, K1 "
+          f"launches {launches}, {_k1_count(tc_calls)} of them traced; {tc_dev:.4f} device "
+          f"ms/frame, {tc['wall_ms_per_frame']:.2f} wall ms/frame):", flush=True)
+    top, attributed = tc["top"][:10], tc.get("attribution", [])[:5]
+    for t in top:
+        print(f"    {t['op'][:60]:60s} {t['total_ms']:9.2f} ms {t['ms_per_frame']:9.4f} ms/frame "
+              f"{t['calls']:6d} calls {t['pct']:5.1f} %", flush=True)
+    for a in attributed:
+        print(f"    {a['kernel'][:90]}  {a['ms_per_frame']:.4f} ms/frame, {a['calls']} calls",
+              flush=True)
+        for o in a["ops"][:4]:
+            print(f"        {o['op'][:150]}: {o['launches']} launches, {o['ms']:.3f} ms",
+                  flush=True)
+    # every convolution the top kernels ran, its rate over all of its kernels
+    convs = {o["op"]: o for a in attributed for o in a["ops"]
+             if o["op"].startswith("aten::conv") and o["tflops"] is not None}
+    convs = sorted(convs.values(), key=lambda o: -o["op_ms"])
+    for o in convs[:12]:
+        print(f"  conv row: {o['op'][:120]}: {o['op_calls']} calls, {o['op_ms']:.3f} ms, "
+              f"{o['tflops']:.1f} TFLOP/s, {o['gbps']:.0f} GB/s", flush=True)
+    r["trace_chunk"] = {"wall_ms_per_frame": tc["wall_ms_per_frame"],
+                        "device_ms_per_frame": tc_dev,
+                        "top": [(t["op"][:80], t["ms_per_frame"]) for t in top],
+                        "conv_tflops": [(o["op"][:60], o["tflops"]) for o in convs[:12]],
+                        "convs": len(convs)}
+    if launches != TOOL_ITERS + 2:
+        fail(f"trace_chunk_torch: K1 launched {launches} times for {TOOL_ITERS + 2} chunks")
+    if DEVICE == "cuda" and (len(top) != 10 or not attributed
+                             or not _k1_count(tc_calls)):
+        fail("trace_chunk_torch: no device table, no attribution or no K1 in its trace")
+
+    # (c) export: the .pt2 program at one chunk's batch, then npz and its reload
+    pt2 = os.path.join(tool_dir, f"yolov8s_{SIZE}_b{K}.pt2")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):       # the tool prints the path
+        export_main(["-w", WEIGHTS, "--num-classes", "8", "-f", "export", "--imgsz",
+                     str(SIZE), "--batch", str(K), "-o", pt2, *dev_flag])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = torch.export.load(pt2).module()
+    _sync()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    det = pipe.detector
+    with torch.no_grad():
+        img = planar_letterbox(*planes, SIZE, meta.pad_left, meta.pad_top, dtype=det.dtype)
+        want = det.model(img.permute(0, 3, 1, 2))
+        got = program(img)
+        diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.float().abs().max()) for w in want)
+        prog_ms = cuda_time_ms(lambda: program(img), iters=10) if DEVICE == "cuda" else None
+        mod_ms = (cuda_time_ms(lambda: det.model(img.permute(0, 3, 1, 2)), iters=10)
+                  if DEVICE == "cuda" else None)
+    r["export"] = {"seconds": export_s, "bytes": os.path.getsize(pt2), "load_ms": load_ms,
+                   "max_abs_diff": diff, "program_ms": prog_ms, "module_ms": mod_ms}
+    print(f"  (c) export_model_torch -f export (B = {K}, {det.dtype}, {SIZE}): {export_s:.2f} s, "
+          f"{os.path.getsize(pt2)} bytes, load {load_ms:.1f} ms; reloaded program against the "
+          f"module on one chunk's letterboxed input: max |diff| {diff} (head range {scale:.2f}); "
+          f"forward {prog_ms} ms (program) / {mod_ms} ms (module), CUDA events", flush=True)
+    # the same kernels on the same card and inputs: anything but 0 is a wrong export
+    if diff != 0 or not all(torch.isfinite(g).all() for g in got):
+        fail(f"the exported program's heads differ from the module's by {diff}")
+    del program
+    npz = os.path.join(tool_dir, "rich640d_export.npz")
+    with contextlib.redirect_stdout(sys.stderr):
+        export_main(["-w", WEIGHTS, "--num-classes", "8", "-f", "npz", "--imgsz", str(SIZE),
+                     "-o", npz, *dev_flag])
+    dcfg = dict(model="yolov8s", num_classes=8, input_size=SIZE, conf_threshold=0.25,
+                classes=None)
+    ref_det = Detector({**dcfg, "weights": WEIGHTS}, device=DEVICE, warmup=False)
+    want_dets = [ref_det.detect(frames[7 * t]) for t in range(PT_FRAMES)]
+    del ref_det
+    npz_det = Detector({**dcfg, "weights": npz}, device=DEVICE, warmup=False)
+    nms_kernel.launches = 0
+    dets = [npz_det.detect(frames[7 * t]) for t in range(PT_FRAMES)]
+    launches = nms_kernel.launches
+    del npz_det
+    out["launches"]["export_npz_detect"] = {"launches": launches, "frames": PT_FRAMES}
+    same = all(np.array_equal(a.xyxy, b.xyxy) and np.array_equal(a.confidence, b.confidence)
+               and np.array_equal(a.class_id, b.class_id) for a, b in zip(dets, want_dets))
+    n_dets = sum(len(d) for d in dets)
+    r["export"]["npz_bit_equal"] = same
+    print(f"  npz export ({os.path.getsize(npz)} bytes) reloaded: {n_dets} detections on "
+          f"{PT_FRAMES} frames, bit-equal to the checkpoint's: {same}; K1 launches {launches}",
+          flush=True)
+    if not same or not n_dets or launches != PT_FRAMES:
+        fail(f"npz export: detections differ or K1 launched {launches} times")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the three measuring tools, cut short
+    def run_tool(key: str, main, argv: list[str], path: str, want_launches: int,
+                 n_frames: int):
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        # the tool's own table and JSON go to a file beside its report
+        with open(os.path.join(tool_dir, f"{key}.out"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            rc = main([*argv, *dev_flag])
+        if rc != 0:
+            fail(f"{key} exited non-zero")
+        secs = time.perf_counter() - t0
+        launches = nms_kernel.launches
+        with open(path) as f:
+            report = json.load(f)
+        out["launches"][key] = {"launches": launches, "frames": n_frames}
+        print(f"  {key} ({secs:.1f} s, K1 launches {launches}): {json.dumps(report)}",
+              flush=True)
+        if launches != want_launches:
+            fail(f"{key}: K1 launched {launches} times, not {want_launches}")
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        return report
+
+    print("  (d) the measuring tools", flush=True)
+    j = os.path.join(tool_dir, "bench_chunked.json")
+    n_chunks = -(-BENCH_CHUNK_FRAMES // K)
+    r["benchmark_chunked"] = run_tool(
+        "benchmark_chunked", benchmark_torch.main,
+        ["--mode", "chunked", "--frames", str(BENCH_CHUNK_FRAMES), "--chunk", str(K),
+         *model_flags, *size_flags, "--json-out", j], j, 1 + n_chunks, (1 + n_chunks) * K)
+    j = os.path.join(tool_dir, "bench_per_stage.json")
+    r["benchmark_per_stage"] = run_tool(
+        "benchmark_per_stage", benchmark_torch.main,
+        ["--mode", "per_stage", "--frames", str(BENCH_STAGE_FRAMES), *model_flags,
+         *size_flags, "--json-out", j], j, WARMUP_ITERS + BENCH_STAGE_FRAMES,
+        BENCH_STAGE_FRAMES)
+    j = os.path.join(tool_dir, "latency.json")
+    # warmup 2, the chunk program 1 + 1 + 4 reps at B = 16, then three loops
+    r["bench_latency"] = run_tool(
+        "bench_latency", bench_latency_torch.main,
+        ["--frames", str(LATENCY_FRAMES), *model_flags, *size_flags, "--json", j], j,
+        2 + 6 + 3 * LATENCY_FRAMES, 2 + 6 * 16 + 3 * LATENCY_FRAMES)
+    j = os.path.join(tool_dir, "dense.json")
+    densities = [int(x) for x in DENSE_DENSITIES.split(",")]
+    n_warm = 2 + max(2, DENSE_REPS // 2)
+    per_density = n_warm + 2 * DENSE_REPS + 2    # warm, timed, traced chunks; 2 debug frames
+    r["bench_dense"] = run_tool(
+        "bench_dense", bench_dense_torch.main,
+        ["--weights", WEIGHTS, "--model", "yolov8s", "--num-classes", "8", "--input-size",
+         str(SIZE), "--height", str(H), "--width", str(W), "--densities", DENSE_DENSITIES,
+         "--chunk", str(K), "--reps", str(DENSE_REPS), "--trace", "--trace-dir",
+         os.path.join(tool_dir, "dense_traces"), "--json", j], j,
+        per_density * len(densities), len(densities) * ((per_density - 2) * K + 2))
+    if DEVICE == "cuda" and not all(row["device_ms_per_frame"] for row in r["bench_dense"]):
+        fail("bench_dense --trace: a density's trace holds no device time")
+    # K1 bit for bit and timed on the densest chunk's candidates
+    dcfg = bench_dense_torch.dense_config(WEIGHTS, "yolov8s", 8, SIZE, 0.25)
+    dd = dcfg.detection
+    ddet = Detector(dd, device=DEVICE, warmup=False)
+    chunk = np.stack([dense_moving_scene(t, H, W, n_objects=densities[-1],
+                                         seed=1234 + densities[-1])[0] for t in range(K)])
+    (y, u, v), dmeta = pack_chunk(chunk, SIZE)
+    with torch.no_grad():
+        dimg = planar_letterbox(*(torch.from_numpy(p).to(DEVICE) for p in (y, u, v)), SIZE,
+                                dmeta.pad_left, dmeta.pad_top, dtype=ddet.dtype)
+        bd, cl = ddet.model(dimg.permute(0, 3, 1, 2))
+        cb, cs, cc, _ = candidates_from_logits(bd, cl, SIZE, dd.conf_threshold,
+                                               dd.nms_candidates, ddet._class_mask)
+        off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
+        cs = cs.contiguous()
+    want = nms_kernel.greedy_suppress_reference(off, cs, dd.iou_threshold)
+    got = nms_kernel.greedy_suppress(off, cs, dd.iou_threshold)
+    dense_mism = int((got.cpu() != want.cpu()).sum())
+    out["mismatches"] += dense_mism
+    print(f"  K1 on a {densities[-1]}-object chunk's candidates (B = {K}, K = "
+          f"{dd.nms_candidates}): mismatches {dense_mism}", flush=True)
+    if dense_mism:
+        fail(f"K1 differs from its plain version on the dense chunk ({dense_mism})")
+    out["dense_k1"] = k1_times(off, cs, dd.iou_threshold,
+                               f"B = {K}, K = {dd.nms_candidates}, {densities[-1]} objects")
+    del ddet, pipe
+
+    # (e) cold start in fresh processes.  The first calls (first conv, first
+    # forward, first chunk program: cuDNN's first plans) are one cost; two
+    # more processes ask whether anything cacheable removes it: a second
+    # process on the CUDA JIT cache the first one filled (and the
+    # page cache it warmed), and one that loads every CUDA module at init
+    code = ("import json, sys, time\n"
+            f"ROOT, DEVICE, H, W, K, SIZE = {ROOT!r}, {DEVICE!r}, {H}, {W}, {K}, {SIZE}\n"
+            f"OVERRIDES = json.loads({json.dumps(five['overrides'])!r})\n" + _COLD_START)
+    jit_cache = os.path.join(tool_dir, "cuda_jit_cache")
+    env = {**os.environ, "CUDA_CACHE_PATH": jit_cache}
+    env.pop("CUDA_MODULE_LOADING", None)
+    r["cold_start"] = {}
+    for key, extra in (("first", {}), ("second", {}),
+                       ("eager", {"CUDA_MODULE_LOADING": "EAGER"})):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600, env={**env, **extra})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], "\n", proc.stderr[-3000:], file=sys.stderr)
+            fail(f"cold-start child ({key}) exited {proc.returncode}")
+        cold = json.loads(proc.stdout.strip().splitlines()[-1])
+        cold["jit_cache_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                      for d, _, fs in os.walk(jit_cache) for f in fs)
+        out["launches"][f"cold_start_{key}"] = {"launches": cold["k1_launches"],
+                                               "frames": 2 * K + 3}
+        r["cold_start"][key] = {**cold, "process_s": wall}
+        print(f"  (e) cold start, {key} process ({wall:.2f} s with interpreter start and "
+              f"exit): {json.dumps(cold)}", flush=True)
+        if cold["k1_launches"] != 2 + WARMUP_ITERS:
+            fail(f"cold start ({key}): K1 launched {cold['k1_launches']} times")
+    print(json.dumps({"phase12": r, "card": smi}), flush=True)
+    out["readings"] = r
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -2530,13 +2964,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/11 card")
+    phase("1/12 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/11 build kernels (nvcc -> ctypes)")
+    phase("2/12 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -2549,7 +2983,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/11 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/12 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -2572,8 +3006,8 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/11 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
-    cfg = load_config(overrides={
+    phase("4/12 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    overrides5 = {
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
         "parallel": {"chunk_size": K},
@@ -2581,7 +3015,8 @@ def main() -> int:
                    "zones": DEFAULTS["events"]["zones"] + [
                        {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
                         "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}]},
-    })
+    }
+    cfg = load_config(overrides=overrides5)
     os.makedirs(OUT_DIR, exist_ok=True)
     if os.path.exists(cfg.events.alert.log_path):
         os.remove(cfg.events.alert.log_path)
@@ -2615,7 +3050,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/11 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/12 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -2728,27 +3163,27 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/11 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/12 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/11 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/12 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/11 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/12 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
-    phase("9/11 serving: the web app over a socket, the default build, 8-way concurrency, "
+    phase("9/12 serving: the web app over a socket, the default build, 8-way concurrency, "
           "the MJPEG monitor, run_inference_torch")
     t9 = time.perf_counter()
     serving = serving_paths(smi, live["quality"])
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
-    phase("10/11 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
+    phase("10/12 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
           "zone masks, the x6 / x24 / bgr transports")
     t10 = time.perf_counter()
     resume = resume_paths(smi)
     max_err = max(max_err, float(resume["mismatches"]))
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
-    phase("11/11 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
+    phase("11/12 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
           "version, frozen QAT scales per stage, S = 2), the per-frame bgr loop, mqtt, .pt "
           "weights, int8 mAP")
     t11 = time.perf_counter()
@@ -2758,9 +3193,17 @@ def main() -> int:
     quant = int8_paths(smi, frames, bf16, serving["detect_eval"]["mAP_50"])
     max_err = max(max_err, float(quant["mismatches"]))
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
+    phase("12/12 device traces (profiling.trace_dir, trace_chunk_torch), model export (.pt2, "
+          "npz), benchmark / bench_latency / bench_dense, cold start")
+    t12 = time.perf_counter()
+    tools = tool_paths(smi, frames, {"overrides": overrides5, "chunk_dev_ms": chunk_dev_ms,
+                                     "planes": planes, "meta": meta})
+    max_err = max(max_err, float(tools["mismatches"]))
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                **live["launches"], **trackers["launches"], **multi["launches"],
-               **serving["launches"], **resume["launches"], **quant["launches"]}
+               **serving["launches"], **resume["launches"], **quant["launches"],
+               **tools["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2782,7 +3225,8 @@ def main() -> int:
         **{key: {"ms": t["trace_ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
                  "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
            for key, t in (("b1_served", serving["b1"]),            # phase 9 (c)
-                          ("b1_detect", serving["b1_detect"]))},   # phase 9 (g), K = 1000
+                          ("b1_detect", serving["b1_detect"]),     # phase 9 (g), K = 1000
+                          ("dense64", tools["dense_k1"]))},        # phase 12 (d), K = 512
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

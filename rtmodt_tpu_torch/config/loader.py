@@ -11,8 +11,7 @@ resolution, a ``[w, h]`` input size, ...) is translated first
 (``_REFERENCE_ALIASES``, as the reference loader does); the keys of
 ``_REFERENCE_ONLY`` are then skipped with a log line, so the reference
 package's YAML files load unmodified.  Any other unknown key raises, and so
-does a value the port cannot honour (``validate`` names the ROADMAP item
-that will bring it).
+does a value out of its range (``validate``).
 """
 
 from __future__ import annotations
@@ -203,7 +202,8 @@ class ProfilingConfig:
     warmup_frames: int = 50
     log_interval: int = 100
     per_stage: bool = True              # False = the fused packed per-frame step
-    trace_dir: str | None = None        # not ported: must stay null
+    trace_dir: str | None = None        # capture a torch.profiler trace here
+    trace_frames: int = 20              # frames (chunk dispatches) to include in it
 
 
 @dataclass
@@ -318,7 +318,6 @@ _SUBSECTIONS = {"bytetrack": ByteTrackConfig, "deepsort": DeepSortConfig,
 _REFERENCE_ONLY: dict[tuple[str, ...], dict[str, tuple | None]] = {
     ("system",): {"precision": None, "output_dir": None},
     ("ingestion",): {"buffer_size": None},
-    ("profiling",): {"trace_frames": None},
     ("detection",): {"batch_size": None, "topk_impl": ("exact", "approx")},
     ("tracking", "bytetrack"): {"mot20": None},
     ("parallel",): {"mesh_axes": None, "donate_state": None},
@@ -457,9 +456,6 @@ def validate(cfg: PipelineConfig) -> None:
         raise ValueError(f"ingestion.backend must be opencv|gstreamer, got {i.backend!r}")
     if i.resolution is not None and len(i.resolution) != 2:
         raise ValueError(f"ingestion.resolution must be [width, height], got {i.resolution}")
-    if cfg.profiling.trace_dir:
-        raise ValueError("profiling.trace_dir is not ported (ROADMAP item 12); "
-                         "leave it null")
     vz = cfg.visualization
     if vz.mjpeg_port is not None and not (
             isinstance(vz.mjpeg_port, int) and 0 <= vz.mjpeg_port <= 65535):

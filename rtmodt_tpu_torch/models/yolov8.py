@@ -65,11 +65,15 @@ class ConvBN(nn.Module):
     def fuse_bn(self) -> None:
         """Fold BN into the conv, in float32 as the reference's
         ``models/weights.py::fuse_bn`` does: ``k' = k * scale / sqrt(var +
-        eps)``, ``b' = bias - mean * scale / sqrt(var + eps)``."""
+        eps)``, ``b' = bias - mean * scale / sqrt(var + eps)``.  The square
+        root is taken in float64 and rounded once, which is the correctly
+        rounded float32 root numpy computes; torch's vectorized float32 root
+        on the CPU is off by an ulp on rare inputs."""
         if self.bn is None:
             return
         bn, conv = self.bn, self.conv
-        factor = bn.weight.float() / torch.sqrt(bn.running_var.float() + BN_EPS)
+        root = torch.sqrt((bn.running_var.float() + BN_EPS).double()).float()
+        factor = bn.weight.float() / root
         fused = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size,
                           conv.stride, conv.padding, bias=True,
                           device=conv.weight.device, dtype=conv.weight.dtype)

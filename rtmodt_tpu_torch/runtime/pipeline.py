@@ -53,6 +53,14 @@ chunk's slot boxes runs on the device (``ops/polygon.py``).
 
 Frames come from the port's ``RTSPReader``: ids count from 1, file frames
 carry their stream time, live sources keep only the newest frame.
+
+Device traces (``profiling.trace_dir``): ``_maybe_trace`` runs where the
+reference's does, at the top of ``step``, ``step_packed`` and
+``submit_packed_frame`` and once per full chunk dispatch of ``run_chunked``
+(not in ``submit``).  Its first call starts a torch.profiler capture
+(``profiling/trace_summary.py::start_trace``), the next ``trace_frames``
+calls count down, and the one that reaches 0 stops it and writes one
+``*.pt.trace.json.gz`` into ``trace_dir``; one capture per pipeline.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from rtmodt_tpu_torch.ops.yuv import (check_prepacked, content_dims, pack_chunk,
                                       s2d_to_planes,
                                       unletterbox_boxes_packed)
 from rtmodt_tpu_torch.profiling.latency_profiler import LatencyProfiler
+from rtmodt_tpu_torch.profiling.trace_summary import start_trace, stop_trace
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
 from rtmodt_tpu_torch.utils.logging import logger
@@ -152,6 +161,7 @@ class Pipeline:
             show_hud=v.show_hud, trail_length=v.trail_length,
         ) if (v.enabled or v.mjpeg_port is not None) else None
         self._per_stage = self.cfg.profiling.per_stage
+        self._trace_state = {"frames_left": 0, "active": False}
         self.reset()
         if warmup_shape:
             self.warmup(warmup_shape)
@@ -363,6 +373,29 @@ class Pipeline:
                 self._gmc_reset()
         return int(meta["frames_done"])
 
+    # -- device traces -------------------------------------------------------
+    def _maybe_trace(self) -> None:
+        """With ``profiling.trace_dir`` set, capture the first
+        ``trace_frames`` frames (chunk dispatches in ``run_chunked``) after
+        the first traced call into a Chrome trace, viewable in Perfetto or
+        TensorBoard and read by ``profiling/trace_summary.py``."""
+        tcfg = self.cfg.profiling
+        ts = self._trace_state
+        if not tcfg.trace_dir:
+            return
+        if not ts["active"] and ts["frames_left"] == 0 and not ts.get("done"):
+            ts["profiler"] = start_trace(tcfg.trace_dir, self.device)
+            ts["active"] = True
+            ts["frames_left"] = tcfg.trace_frames
+            logger.info(f"torch.profiler trace started -> {tcfg.trace_dir}")
+        elif ts["active"]:
+            ts["frames_left"] -= 1
+            if ts["frames_left"] <= 0:
+                stop_trace(ts.pop("profiler"))
+                ts["active"] = False
+                ts["done"] = True
+                logger.info("torch.profiler trace captured")
+
     # -- the per-frame paths -------------------------------------------------
     def warmup(self, shape_hw: tuple[int, int], iters: int = 3) -> None:
         """Run the stages of the configured per-frame path on a dummy frame
@@ -403,6 +436,7 @@ class Pipeline:
         Per-stage mode times preprocess, inference, nms and tracking apart,
         each ended by a sync of the card; otherwise the detect + track step is
         timed as one ``inference`` stage."""
+        self._maybe_trace()
         p = self.profiler
         det = self.detector
         h, w = frame.shape[:2]
@@ -481,6 +515,7 @@ class Pipeline:
         packs the frame to planar I420, the device runs the detect + track
         program.  Not asynchronous: the tracker's assignment rounds sync the
         host.  Returns the device (TrackOutputs, NMSResult) of the frame."""
+        self._maybe_trace()
         h, w = frame.shape[:2]
         planes, _ = pack_chunk(frame[None], self.cfg.detection.input_size)
         outs, res = self.submit_packed_yuv(planes, h, w)
@@ -490,6 +525,7 @@ class Pipeline:
         """The packed per-frame path: one frame packed to planar I420 goes
         through ``planar_letterbox`` -> forward -> NMS -> ByteTrack.
         Returns (tracks, events, nms_result)."""
+        self._maybe_trace()
         h, w = frame.shape[:2]
         planes, _ = pack_chunk(frame[None], self.cfg.detection.input_size)
         p = self.profiler
@@ -779,6 +815,7 @@ class Pipeline:
                 metas.append((fid, ts))
                 read += 1
                 if len(buf) == k:
+                    self._maybe_trace()   # trace_frames counts chunk dispatches here
                     submit(buf, metas)
                     buf, metas = [], []
                     if state_path and done // state_interval > snaps_done:

@@ -31,6 +31,8 @@ importlib.import_module("tools.run_pipeline_torch")
 importlib.import_module("tools.compare_trackers_torch")
 importlib.import_module("tools.run_inference_torch")
 importlib.import_module("tools.verify_parity_torch")
+for tool in ("trace_chunk", "benchmark", "bench_latency", "bench_dense", "export_model"):
+    importlib.import_module(f"tools.{tool}_torch")
 importlib.import_module("start_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
@@ -77,7 +79,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.evaluation.coco_eval", "rtmodt_tpu_torch.evaluation.metrics",
                 "rtmodt_tpu_torch.runtime.state_store", "rtmodt_tpu_torch.ops.polygon",
                 "rtmodt_tpu_torch.quant", "rtmodt_tpu_torch.quant.ptq",
-                "rtmodt_tpu_torch.ops.int8_conv", "rtmodt_tpu_torch.events.mqtt"):
+                "rtmodt_tpu_torch.ops.int8_conv", "rtmodt_tpu_torch.events.mqtt",
+                "rtmodt_tpu_torch.profiling.trace_summary"):
         assert mod in out["modules"]
     assert len(out["weights_fns"]) == 6        # the .pt route and save_npz, in the port
 
