@@ -120,8 +120,28 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      tool's JSON and K1 launches; K1 bit for bit and timed on the 64-object
      chunk's 512 candidates; (e) the cold start in a fresh process: imports,
      CUDA init, the kernel cache, weights, the first chunk program, warmup;
-     then in a second process on the CUDA JIT cache the first one filled,
-     and in one with ``CUDA_MODULE_LOADING=EAGER``.
+     then in a second process on the CUDA JIT cache the first one filled;
+ 13. training: a rich synthetic set (64 train / 16 val images at 720p, 40 %
+     dense crowd frames) -> the port's trainer (``tools/train_torch.py``'s)
+     with ``training_rich640d.yaml``'s hyperparameters (YOLOv8s at 640, B =
+     16, bf16, AdamW, EMA 0.9999) from rich640d's EMA weights: (a) 24 steps,
+     each step's loss, parts, num_fg, grad_norm and lr, the median step time
+     (CUDA events), images/s, peak memory, the loader's wait; the same loop
+     with the loader thread and with one pre-built batch, in turns; two
+     batches, each in bf16 against float32 (TF32 off) and against the
+     known-wrong bf16 step with BN in bf16: the loss and the BN batch
+     statistics; (b) validation of the EMA
+     parameters before the first step and after the last, K1 once per val
+     image, and K1 at K = 1000 bit for bit and timed on a val image's
+     candidates; (c) the checkpoint of step 16 restored by a fresh trainer
+     with ``resume``: every tensor and int bit-equal, the same lr for step
+     17, its bytes and save / load ms; (d) 4 QAT steps, whose
+     ``qat_final.npz`` and ``qat_act_scales.npz`` go through
+     ``run_inference_torch detect --quant int8``: mAP@0.5, K1 and one int8
+     GEMM per quantized layer and image; (e) ``tools/selftest_e2e_torch.py``
+     at its defaults in a child process: IDF1 and MOTA >= 0.95; (f)
+     ``tools/train_embedder_torch.py`` for 100 steps: held-out rank-1 and
+     margin before and after, rank-1 must rise.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -131,6 +151,7 @@ library and ``rtmodt_tpu_torch`` only.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import subprocess
@@ -220,6 +241,30 @@ BENCH_CHUNK_FRAMES = 64     # benchmark_torch --mode chunked (reference default 
 BENCH_STAGE_FRAMES = 48     # benchmark_torch --mode per_stage (reference default 200)
 LATENCY_FRAMES = 120        # bench_latency_torch --frames (reference default 300)
 DENSE_DENSITIES, DENSE_REPS = "8,64", 4   # bench_dense_torch (reference 8,32,64,128 and 8)
+# phase 13: YOLOv8 training (training_rich640d.yaml's hyperparameters)
+TRAIN_CONFIG = os.path.join(ROOT, "rtmodt_tpu_torch", "config", "training_rich640d.yaml")
+TRAIN_IMAGES, VAL_IMAGES = 64, 16   # the rich synthetic set at 720p, 40 % dense frames
+TRAIN_MODEL, TRAIN_WEIGHTS = "yolov8s", WEIGHTS   # the config's model, from rich640d's EMA
+STEPS_PER_EPOCH = 8
+TRAIN_STEPS = 24       # B = 16 (three epochs of 8 steps, all in the warmup)
+SAVE_STEP = 16         # the checkpoint that (c) resumes from
+QAT_STEPS = 4
+EMBED_STEPS = 100      # train_embedder_torch (reference default 4000)
+SELFTEST_MIN = 0.95    # IDF1 and MOTA of tools/selftest_e2e_torch.py
+SELFTEST_ARGS: list[str] = []   # its defaults: 320 steps of yolov8n at 320, fp32
+# bf16 against float32 (TF32 off): one step from the same state on each of
+# BF16_CHECK_BATCHES batches, relative gaps.  Measured on an H100 80GB HBM3
+# at 700 W (the sound bf16 step / the known-wrong one with BN and SiLU in
+# bf16): the loss 5.5e-6, 2.8e-4, 4.8e-4 / 3.6e-5, 7.9e-6, 2.2e-4 on three
+# batches, which the loss cannot tell apart, so its limit only bounds gross
+# faults at 10x the largest sound reading; on two batches the BN batch means
+# (L2 over every channel) 4.9e-4, 5.3e-4 / 2.3e-3, 2.3e-3 and variances
+# 3.6e-4, 4.0e-4 / 4.3e-3, 4.8e-3: each of these limits lies between.
+BF16_LOSS_TOL = 5e-3
+BN_MEAN_TOL = 1.1e-3
+BN_VAR_TOL = 1.5e-3
+BF16_CHECK_BATCHES = 2
+LOADER_AB_STEPS = 6    # steps of each arm of the loader-thread vs pre-built batch loop
 
 
 def phase(msg: str) -> None:
@@ -1219,14 +1264,17 @@ def _watch_monitor(opened: list, want_parts: int, out: dict) -> None:
         out["error"] = f"{type(e).__name__}: {e}"
 
 
-def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0) -> tuple:
+def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0,
+                        counts: dict | None = None) -> tuple:
     """Run ``module``'s ``main(argv)`` in a fresh interpreter and read K1's
-    launch count of that process from its last line.  Returns (process,
-    launches, seconds)."""
+    launch count of that process from its last line (``counts``, when given,
+    also gets the int8 GEMM's).  Returns (process, launches, seconds)."""
     code = (f"import json, sys\nsys.path.insert(0, {ROOT!r})\n"
-            f"from {module} import main\nfrom rtmodt_tpu_torch.ops import nms_kernel\n"
+            f"from {module} import main\n"
+            "from rtmodt_tpu_torch.ops import int8_conv, nms_kernel\n"
             f"rc = main({argv!r})\n"
-            "print(json.dumps({'k1_launches': nms_kernel.launches}), flush=True)\n"
+            "print(json.dumps({'k1_launches': nms_kernel.launches, "
+            "'int8_launches': int8_conv.launches}), flush=True)\n"
             "sys.exit(rc)\n")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -1235,8 +1283,10 @@ def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0) ->
     if proc.returncode != 0:
         print(proc.stdout[-3000:], "\n", proc.stderr[-3000:], file=sys.stderr)
         fail(f"{module} {' '.join(argv[:2])} exited {proc.returncode}")
-    launches = json.loads(proc.stdout.strip().splitlines()[-1])["k1_launches"]
-    return proc, launches, seconds
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    if counts is not None:
+        counts.update(last)
+    return proc, last["k1_launches"], seconds
 
 
 def serving_paths(smi: str, dense_q: dict) -> dict:
@@ -2909,10 +2959,9 @@ def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
     del ddet, pipe
 
     # (e) cold start in fresh processes.  The first calls (first conv, first
-    # forward, first chunk program: cuDNN's first plans) are one cost; two
-    # more processes ask whether anything cacheable removes it: a second
-    # process on the CUDA JIT cache the first one filled (and the
-    # page cache it warmed), and one that loads every CUDA module at init
+    # forward, first chunk program: cuDNN's first plans) are one cost; a
+    # second process on the CUDA JIT cache the first one filled (and the page
+    # cache it warmed) asks whether anything cacheable removes it
     code = ("import json, sys, time\n"
             f"ROOT, DEVICE, H, W, K, SIZE = {ROOT!r}, {DEVICE!r}, {H}, {W}, {K}, {SIZE}\n"
             f"OVERRIDES = json.loads({json.dumps(five['overrides'])!r})\n" + _COLD_START)
@@ -2920,8 +2969,7 @@ def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
     env = {**os.environ, "CUDA_CACHE_PATH": jit_cache}
     env.pop("CUDA_MODULE_LOADING", None)
     r["cold_start"] = {}
-    for key, extra in (("first", {}), ("second", {}),
-                       ("eager", {"CUDA_MODULE_LOADING": "EAGER"})):
+    for key, extra in (("first", {}), ("second", {})):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                               text=True, timeout=600, env={**env, **extra})
@@ -2944,6 +2992,423 @@ def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
     return out
 
 
+def _k1_val_candidates(trainer, path: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's inputs at K = 1000 for one val image, as training validation
+    builds them (``batched_nms_fixed``): class-offset boxes and gated scores
+    of the EMA model's full-grid decode, (1, 1000, 4) and (1, 1000)."""
+    import cv2
+
+    from rtmodt_tpu_torch.models.yolov8 import decode_predictions
+    from rtmodt_tpu_torch.ops.letterbox import letterbox
+    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, _stable_topk
+
+    with torch.no_grad():
+        img, _ = letterbox(torch.from_numpy(cv2.imread(path)).to(DEVICE), SIZE,
+                           dtype=torch.float32)
+        boxes, scores = decode_predictions(*trainer.eval_model()(img.permute(2, 0, 1)[None]),
+                                           SIZE)
+        best, cls = scores[0].max(dim=-1)
+        top, idx = _stable_topk(torch.where(best >= 0.001, best, -1.0), 1000)
+        cs = torch.where(top > 0, top, 0.0)
+        off = boxes[0][idx] + (cls[idx].float() * CLASS_OFFSET)[:, None]
+    return off[None].contiguous(), cs[None].contiguous()
+
+
+def _clone_tree(x):
+    """A copy of a checkpoint tree on the tensors' own device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def _loop_ms(state, tx, next_batch, n: int) -> dict:
+    """``n`` train steps of ``state`` on ``next_batch()``'s batches with no
+    wait for the card inside the loop: the host's ms a step between two
+    synchronizations, the median of the steps' CUDA-event ms and the
+    median of the host's waits for a batch."""
+    from rtmodt_tpu_torch.training.train_step import train_step
+
+    events, waits = [], []
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tw = time.perf_counter()
+        batch = next_batch()
+        waits.append((time.perf_counter() - tw) * 1e3)
+        if DEVICE == "cuda":
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+        train_step(state, batch.to(DEVICE), tx=tx, input_size=SIZE)
+        if DEVICE == "cuda":
+            ev[1].record()
+            events.append(ev)
+    _sync()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
+    return {"wall_ms": wall, "median_event_ms": ms[len(ms) // 2] if ms else None,
+            "median_wait_ms": sorted(waits)[len(waits) // 2]}
+
+
+def _loop_str(r: dict) -> str:
+    ev = r["median_event_ms"]
+    return (f"{r['wall_ms']:.2f} ms a step (events "
+            + ("not measured" if ev is None else f"{ev:.2f}")
+            + f", wait {r['median_wait_ms']:.2f})")
+
+
+def _rel(x: torch.Tensor, y: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+
+def _bn_running(model) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every BN's running mean and variance, each concatenated (float32)."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    return (torch.cat([bn.running_mean.float() for bn in bns]),
+            torch.cat([bn.running_var.float() for bn in bns]))
+
+
+@contextlib.contextmanager
+def _bn_in_compute_dtype(on: bool):
+    """While active (``on``), the train-mode ConvBN computes its BN batch
+    statistics, output and SiLU in the compute dtype instead of float32:
+    the known-wrong step the bf16 gates must tell from the sound one."""
+    import torch.nn.functional as F
+
+    from rtmodt_tpu_torch.models import yolov8
+
+    def forward(cb, x):
+        y = yolov8.conv_cast(cb.conv, x)
+        if cb.bn is None:
+            return F.silu(y)
+        mean = y.mean(dim=(0, 2, 3))
+        var = torch.clamp((y * y).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            for ra, v in ((cb.bn.running_mean, mean), (cb.bn.running_var, var)):
+                ra.copy_(yolov8.BN_MOMENTUM * ra + (1.0 - yolov8.BN_MOMENTUM) * v.float())
+        mul = torch.rsqrt(var + yolov8.BN_EPS) * cb.bn.weight.to(y.dtype)
+        return F.silu((y - mean[:, None, None]) * mul[:, None, None]
+                      + cb.bn.bias.to(y.dtype)[:, None, None])
+
+    saved = yolov8.ConvBN._train_forward
+    if on:
+        yolov8.ConvBN._train_forward = forward
+    try:
+        yield
+    finally:
+        yolov8.ConvBN._train_forward = saved
+
+
+def training_paths(smi: str) -> dict:
+    """Phase 13: YOLOv8s training at 640 on the card through the port's
+    trainer (``tools/train_torch.py``'s), validation through K1, checkpoint
+    and resume, QAT into the int8 path, the selftest and the embedder."""
+    import copy
+    import shutil
+
+    from rtmodt_tpu_torch.models.yolov8 import BN_MOMENTUM
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.training.checkpoint import (CheckpointManager, to_cpu,
+                                                      train_state_dict)
+    from rtmodt_tpu_torch.training.synth_data import make_synthetic_rich
+    from rtmodt_tpu_torch.training.train_step import TrainState, train_step
+    from rtmodt_tpu_torch.training.trainer import Trainer, load_train_config
+
+    out: dict = {"launches": {}}
+    dev_flag = [] if DEVICE == "cuda" else ["--cpu"]
+    data = os.path.join(OUT_DIR, "train_rich")
+    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt")
+    for d in (data, ckpt_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_rich(data, TRAIN_IMAGES, VAL_IMAGES, H, W, 8, seed=0, dense_frac=0.4)
+    print(f"  data: {TRAIN_IMAGES} train / {VAL_IMAGES} val rich images at {H}x{W} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) train: training_rich640d.yaml, from rich640d's EMA weights
+    cfg = load_train_config(TRAIN_CONFIG, data_root=data)
+    cfg["model"], cfg["input_size"] = TRAIN_MODEL, SIZE
+    cfg["steps_per_epoch"] = STEPS_PER_EPOCH
+    cfg["val_interval"] = TRAIN_STEPS // STEPS_PER_EPOCH    # once, after the last step
+    cfg["checkpoint"].update({"dir": ckpt_dir, "save_period": SAVE_STEP // STEPS_PER_EPOCH})
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, DEVICE, weights=TRAIN_WEIGHTS)
+    print(f"  trainer: {cfg['model']} at {SIZE}, B = {cfg['batch_size']}, "
+          f"{cfg['precision']}, EMA {cfg['ema_decay']}, {trainer.steps_per_epoch} steps/epoch, "
+          f"warmup {cfg['optimizer']['warmup_epochs'] * trainer.steps_per_epoch} of "
+          f"{trainer.total_steps}; built in {time.perf_counter() - t0:.2f} s", flush=True)
+    # (b) validation of the EMA parameters before the first step
+    nms_kernel.launches = 0
+    val0 = trainer.validate()
+    out["launches"]["train_val_before"] = {"launches": nms_kernel.launches, "frames": VAL_IMAGES}
+    print(f"  (b) validation before training: mAP@0.5 {val0['mAP_50']:.4f}, recall "
+          f"{val0['recall']:.4f}; K1 launches {nms_kernel.launches} for {VAL_IMAGES} val "
+          f"images ({smi})", flush=True)
+    if nms_kernel.launches != VAL_IMAGES:
+        fail(f"validation launched K1 {nms_kernel.launches} times for {VAL_IMAGES} images")
+    steps, snap = [], {}
+
+    def on_step(step: int, m: dict) -> None:
+        # keep the metrics on the card and clone the state there: reading
+        # either here would wait for the card on every step
+        steps.append((step, m))
+        if step == SAVE_STEP:
+            snap["state"] = _clone_tree(train_state_dict(trainer.state, trainer.ema))
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    nms_kernel.launches = 0
+    t0 = time.perf_counter()
+    summary = trainer.fit(TRAIN_STEPS, on_step=on_step)
+    fit_s = time.perf_counter() - t0
+    out["launches"]["train_val_after"] = {"launches": nms_kernel.launches, "frames": VAL_IMAGES}
+    if len(steps) != TRAIN_STEPS or summary["step"] != TRAIN_STEPS:
+        fail(f"training ran {len(steps)} steps, not {TRAIN_STEPS}")
+    snap["state"] = to_cpu(snap["state"])
+    rows = []
+    for (step, m), ms in zip(steps, summary["step_ms"]):
+        row = {**{k: float(v) for k, v in m.items()}, "step_ms": ms}
+        rows.append(row)
+        print(f"  step {step}: loss {row['loss']:.4f} (box {row['box_loss']:.4f}, cls "
+              f"{row['cls_loss']:.4f}, dfl {row['dfl_loss']:.4f}), num_fg {int(row['num_fg'])}, "
+              f"grad_norm {row['grad_norm']:.3f}, lr {row['lr']:.3e}, step {row['step_ms']:.2f} "
+              f"ms, loader wait {row['wait_ms']:.2f} ms", flush=True)
+    steps = rows
+    if not all(np.isfinite([r[k] for r in steps for k in ("loss", "box_loss", "cls_loss",
+                                                           "dfl_loss", "grad_norm")]).tolist()):
+        fail("a training loss is not finite")
+    b = cfg["batch_size"]
+    step_ms = sorted(r["step_ms"] for r in steps)
+    med = step_ms[len(step_ms) // 2]
+    waits = sorted(r["wait_ms"] for r in steps[1:])
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    r_a = {"median_step_ms": med, "min_step_ms": step_ms[0], "max_step_ms": step_ms[-1],
+           "img_per_s": b * 1000.0 / med, "wall_img_per_s": b * TRAIN_STEPS / fit_s,
+           "peak_bytes": peak, "median_wait_ms": waits[len(waits) // 2],
+           "max_wait_ms": waits[-1], "first_wait_ms": steps[0]["wait_ms"], "fit_s": fit_s}
+    print(f"  (a) {TRAIN_STEPS} steps: median step {med:.2f} ms (CUDA events around forward + "
+          f"loss + backward + update + EMA; min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}), "
+          f"{r_a['img_per_s']:.1f} images/s at the median step, {r_a['wall_img_per_s']:.1f} "
+          f"images/s over the whole loop ({fit_s:.1f} s with validation and checkpoints); peak "
+          f"{peak / 2**30:.2f} GiB allocated; loader wait median {r_a['median_wait_ms']:.2f} "
+          f"ms, max {r_a['max_wait_ms']:.2f} ms a step after the first "
+          f"({r_a['first_wait_ms']:.1f} ms) ({smi})", flush=True)
+    # the same loop with the loader thread and with one pre-built batch, in
+    # turns, on a copy of the state: what the loader costs the step
+    m = copy.deepcopy(trainer.model)
+    st = TrainState(m, trainer.tx.init(dict(m.named_parameters())))
+    pre = trainer.dataset.make_batch(b)
+    pre = type(pre)(*(x.pin_memory() for x in pre)) if DEVICE == "cuda" else pre
+    arms: dict = {"prebuilt": [], "loader": []}
+    for arm in ("prebuilt", "loader", "prebuilt", "loader"):
+        gen = trainer.dataset.batches(b, pin=DEVICE == "cuda") if arm == "loader" else None
+        if gen is not None:
+            next(gen)                              # the thread's first batch
+        arms[arm].append(_loop_ms(st, trainer.tx, (lambda: next(gen)) if gen else lambda: pre,
+                                  LOADER_AB_STEPS))
+        if gen is not None:
+            gen.close()
+    del m, st
+    r_a["loader_ab"] = arms
+    print(f"  (a) the same loop, {LOADER_AB_STEPS} steps an arm, in turns: pre-built batch "
+          + "; ".join(_loop_str(x) for x in arms["prebuilt"]) + " | loader thread "
+          + "; ".join(_loop_str(x) for x in arms["loader"]) + f" ({smi})", flush=True)
+
+    # the bf16 step against float32 with TF32 off, and against the known-wrong
+    # bf16 step with BN in bf16, on a few batches, each from the same state:
+    # the loss, and the BN batch statistics the step folds into the running
+    # ones (ra = 0.97 ra + 0.03 batch)
+    before = _bn_running(trainer.model)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    checks = []
+    for i in range(BF16_CHECK_BATCHES):
+        batch = trainer.dataset.make_batch(b).to(DEVICE)
+        losses, stats = {}, {}
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                         ("bf16_bn_in_bf16", torch.bfloat16)):
+            m = copy.deepcopy(trainer.model)
+            m.dtype = dt
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+                prev if dt == torch.bfloat16 else (False, False))
+            st = TrainState(m, trainer.tx.init(dict(m.named_parameters())))
+            with _bn_in_compute_dtype(name == "bf16_bn_in_bf16"):
+                _, met = train_step(st, batch, tx=trainer.tx, input_size=SIZE)
+            losses[name] = {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss",
+                                                       "dfl_loss", "grad_norm")}
+            stats[name] = [(a - BN_MOMENTUM * b0) / (1.0 - BN_MOMENTUM)
+                           for a, b0 in zip(_bn_running(m), before)]
+            if name == "bf16" and i == 0:
+                # the same step's device time (profiler trace): how much of
+                # the step's wall time the card is busy
+                r_a["step_device_ms"] = device_ms(
+                    lambda: train_step(st, batch, tx=trainer.tx, input_size=SIZE), iters=3)
+                r_a["step_wall_ms"] = cuda_time_ms(
+                    lambda: train_step(st, batch, tx=trainer.tx, input_size=SIZE), iters=3,
+                    warmup=1)
+            del m, st
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        f32 = losses["f32"]["loss"]
+        wrong = ("bf16", "bf16_bn_in_bf16")
+        checks.append({
+            **losses,
+            "loss_rel_gap": {k: abs(losses[k]["loss"] - f32) / abs(f32) for k in wrong},
+            "mean_rel_gap": {k: _rel(stats[k][0], stats["f32"][0]) for k in wrong},
+            "var_rel_gap": {k: _rel(stats[k][1], stats["f32"][1]) for k in wrong}})
+    r_a["bf16_vs_f32"] = checks
+    dev = r_a["step_device_ms"]
+    print(f"  (a) the bf16 step on one batch: {r_a['step_wall_ms']:.2f} ms (CUDA events, 3 "
+          "steps), device time "
+          + ("not measured" if dev is None else
+             f"{dev:.2f} ms (profiler trace): the card idles "
+             f"{100 * (1 - dev / r_a['step_wall_ms']):.1f} % of the step") + f" ({smi})",
+          flush=True)
+    gates = (("loss_rel_gap", BF16_LOSS_TOL), ("mean_rel_gap", BN_MEAN_TOL),
+             ("var_rel_gap", BN_VAR_TOL))
+    for i, c in enumerate(checks):
+        print(f"  (a) batch {i}, against float32 (TF32 off): "
+              f"{json.dumps({k: c[k] for k in ('bf16', 'f32', 'bf16_bn_in_bf16')})}; "
+              + "; ".join(f"{key} {c[key]['bf16']:.3e}, with BN in bf16 "
+                          f"{c[key]['bf16_bn_in_bf16']:.3e} (tolerance {tol})"
+                          for key, tol in gates), flush=True)
+    for c in checks:
+        if not c["loss_rel_gap"]["bf16"] <= BF16_LOSS_TOL:
+            fail(f"bf16 training loss differs from float32 by {c['loss_rel_gap']['bf16']:.3e}")
+        for key, tol in gates[1:]:
+            if not c[key]["bf16"] <= tol < c[key]["bf16_bn_in_bf16"]:
+                fail(f"BN batch statistics of the bf16 step against float32, {key}: "
+                     f"{c[key]}; the tolerance {tol} must lie between the sound step and "
+                     "BN in bf16")
+    out["train"] = r_a
+
+    # (b) validation after the last step (inside fit) and K1 at K = 1000
+    val1 = summary["vals"][-1][1] if summary["vals"] else None
+    launches = out["launches"]["train_val_after"]["launches"]
+    print(f"  (b) validation after step {TRAIN_STEPS}: mAP@0.5 {val1}; K1 launches {launches} "
+          f"for {VAL_IMAGES} val images ({smi})", flush=True)
+    if val1 is None or launches != VAL_IMAGES:
+        fail(f"validation after training: mAP {val1}, K1 launches {launches}")
+    with open(os.path.join(data, "val_coco_gt.json")) as f:
+        first = json.load(f)["images"][0]["file_name"]
+    off, cs = _k1_val_candidates(trainer, os.path.join(data, "images", "val", first))
+    want = nms_kernel.greedy_suppress_reference(off, cs, 0.6)
+    got = nms_kernel.greedy_suppress(off, cs, 0.6)
+    mism = int((got.cpu() != want.cpu()).sum())
+    print(f"  (b) K1 on a val image's 1000 candidates: {int(want.sum())} kept, mismatches "
+          f"against the plain version {mism}", flush=True)
+    if mism:
+        fail(f"K1 differs from its plain version at K = 1000 in validation ({mism})")
+    out["val_k1"] = k1_times(off, cs, 0.6, "training validation, B = 1, K = 1000")
+    out["val"] = {"before": val0["mAP_50"], "after": val1, "mismatches": mism}
+
+    # (c) checkpoint at SAVE_STEP, then a fresh trainer that resumes from it
+    step_dir = os.path.join(ckpt_dir, str(SAVE_STEP))
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    timing = CheckpointManager(os.path.join(OUT_DIR, "ckpt_timing"))
+    t0 = time.perf_counter()
+    timing.save(SAVE_STEP, train_state_dict(trainer.state, trainer.ema))
+    _sync()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restored = timing.restore(SAVE_STEP, device=DEVICE)
+    _sync()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    del restored
+    shutil.rmtree(os.path.join(OUT_DIR, "ckpt_timing"), ignore_errors=True)
+    resume_dir = os.path.join(OUT_DIR, "train_resume")
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    shutil.copytree(step_dir, os.path.join(resume_dir, str(SAVE_STEP)))
+    cfg2 = copy.deepcopy(cfg)
+    cfg2["checkpoint"].update({"dir": resume_dir, "resume": True})
+    fresh = Trainer(cfg2, DEVICE, weights=TRAIN_WEIGHTS)
+    diffs = _state_diffs(snap["state"], to_cpu(train_state_dict(fresh.state, fresh.ema)))
+    lr_resumed = fresh.schedule(fresh.state.opt_state.count)
+    lr_run = steps[SAVE_STEP]["lr"]
+    r_c = {"bytes": nbytes, "save_ms": save_ms, "load_ms": load_ms, "diffs": diffs,
+           "step": fresh.state.step, "lr_resumed": lr_resumed, "lr_uninterrupted": lr_run}
+    print(f"  (c) checkpoint at step {SAVE_STEP}: {nbytes} bytes, save {save_ms:.1f} ms, load "
+          f"{load_ms:.1f} ms (host clock, to the card); the resumed trainer at step "
+          f"{fresh.state.step}, {len(diffs)} tensors or ints differ from the saved state "
+          f"{diffs[:5]}; lr of step {SAVE_STEP + 1}: resumed {lr_resumed!r}, uninterrupted "
+          f"{lr_run!r}", flush=True)
+    if diffs or fresh.state.step != SAVE_STEP or lr_resumed != lr_run:
+        fail(f"resume from step {SAVE_STEP}: {len(diffs)} differences, step "
+             f"{fresh.state.step}, lr {lr_resumed} vs {lr_run}")
+    out["resume"] = r_c
+    del fresh
+    torch.cuda.empty_cache()
+
+    # (d) QAT on the run of (a), then its files through the int8 detect path
+    t0 = time.perf_counter()
+    qat_weights, qat_scales = trainer.qat(QAT_STEPS)
+    qat_s = time.perf_counter() - t0
+    counts: dict = {}
+    proc, launches, seconds = _counted_subprocess("tools.run_inference_torch", [
+        "detect", "--images", os.path.join(data, "images", "val"), "--gt-json",
+        os.path.join(data, "val_coco_gt.json"), "--weights", qat_weights, "--quant", "int8",
+        "--quant-scales", qat_scales, "--model", TRAIN_MODEL, "--num-classes", "8",
+        "--input-size", str(SIZE), "--evaluate", "--out",
+        os.path.join(OUT_DIR, "qat_predictions.json"), *dev_flag],
+        counts=counts)
+    m_det = json.loads("\n".join(proc.stdout.strip().splitlines()[:-1]))
+    out["launches"]["qat_int8_detect"] = {"launches": launches, "frames": VAL_IMAGES}
+    gemms = counts["int8_launches"]
+    out["qat"] = {"seconds": qat_s, "map50": m_det["mAP_50"], "int8_gemms": gemms,
+                  "detect_s": seconds}
+    print(f"  (d) QAT {QAT_STEPS} steps in {qat_s:.1f} s; run_inference_torch detect --quant "
+          f"int8 with qat_final.npz + qat_act_scales.npz: mAP@0.5 {m_det['mAP_50']:.4f} "
+          f"({seconds:.1f} s), K1 launches {launches}, int8 GEMMs {gemms} "
+          f"({INT8_LAYERS} layers x {VAL_IMAGES} images = {INT8_LAYERS * VAL_IMAGES}) ({smi})",
+          flush=True)
+    if launches != VAL_IMAGES or gemms != INT8_LAYERS * VAL_IMAGES:
+        fail(f"QAT int8 detect: K1 launches {launches}, int8 GEMMs {gemms}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (e) the end-to-end selftest in a child process, at its defaults
+    work = os.path.join(OUT_DIR, "selftest")
+    shutil.rmtree(work, ignore_errors=True)
+    proc, launches, seconds = _counted_subprocess(
+        "tools.selftest_e2e_torch", ["--workdir", work, *SELFTEST_ARGS, *dev_flag])
+    st = json.loads(proc.stdout.strip().splitlines()[-2])
+    out["launches"]["selftest_val"] = {"launches": st["k1_val_launches"], "frames": None}
+    out["launches"]["selftest_track"] = {"launches": st["k1_track_launches"], "frames": 16}
+    out["selftest"] = {**st, "process_s": seconds}
+    print(f"  (e) selftest_e2e_torch: {json.dumps(st)}; {seconds:.1f} s with the process "
+          f"({smi})", flush=True)
+    if not (st["idf1"] >= SELFTEST_MIN and st["mota"] >= SELFTEST_MIN) \
+            or st["k1_track_launches"] != 16 or launches != st["k1_val_launches"] + 16:
+        fail(f"selftest: {st}, K1 launches {launches}")
+
+    # (f) the embedder, a short run
+    emb_out = os.path.join(OUT_DIR, "embedder_smoke.npz")
+    proc, _, seconds = _counted_subprocess("tools.train_embedder_torch", [
+        "--steps", str(EMBED_STEPS), "--out", emb_out, *dev_flag])
+    emb = json.loads(proc.stdout.strip().splitlines()[-2])
+    out["embedder"] = {**emb, "process_s": seconds}
+    print(f"  (f) train_embedder_torch {EMBED_STEPS} steps ({emb['seconds']:.1f} s of "
+          f"training, {seconds:.1f} s with the process): held-out rank-1 "
+          f"{emb['before']['rank1']:.4f} -> {emb['after']['rank1']:.4f}, margin "
+          f"{emb['before']['margin']:.4f} -> {emb['after']['margin']:.4f} ({smi})", flush=True)
+    if not emb["after"]["rank1"] > emb["before"]["rank1"]:
+        fail(f"the embedder's held-out rank-1 did not rise: {emb['before']} -> {emb['after']}")
+    print(json.dumps({"phase13": {k: v for k, v in out.items() if k != "launches"},
+                      "card": smi}), flush=True)
+    return out
+
+
+def _state_diffs(a, b, path: str = "") -> list[str]:
+    """Paths where two checkpoint trees differ (tensors bit for bit, dtype
+    included; ints and None by value)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))[:3]}"]
+        return [d for k in a for d in _state_diffs(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    return [] if type(a) is type(b) and a == b else [path]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an NVIDIA GPU",
@@ -2964,13 +3429,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/12 card")
+    phase("1/13 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/12 build kernels (nvcc -> ctypes)")
+    phase("2/13 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -2983,7 +3448,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/12 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/13 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -3006,7 +3471,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/12 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/13 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     overrides5 = {
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -3050,7 +3515,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/12 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/13 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -3163,27 +3628,27 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/12 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/13 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/12 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/13 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/12 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/13 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
-    phase("9/12 serving: the web app over a socket, the default build, 8-way concurrency, "
+    phase("9/13 serving: the web app over a socket, the default build, 8-way concurrency, "
           "the MJPEG monitor, run_inference_torch")
     t9 = time.perf_counter()
     serving = serving_paths(smi, live["quality"])
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
-    phase("10/12 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
+    phase("10/13 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
           "zone masks, the x6 / x24 / bgr transports")
     t10 = time.perf_counter()
     resume = resume_paths(smi)
     max_err = max(max_err, float(resume["mismatches"]))
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
-    phase("11/12 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
+    phase("11/13 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
           "version, frozen QAT scales per stage, S = 2), the per-frame bgr loop, mqtt, .pt "
           "weights, int8 mAP")
     t11 = time.perf_counter()
@@ -3193,17 +3658,23 @@ def main() -> int:
     quant = int8_paths(smi, frames, bf16, serving["detect_eval"]["mAP_50"])
     max_err = max(max_err, float(quant["mismatches"]))
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
-    phase("12/12 device traces (profiling.trace_dir, trace_chunk_torch), model export (.pt2, "
+    phase("12/13 device traces (profiling.trace_dir, trace_chunk_torch), model export (.pt2, "
           "npz), benchmark / bench_latency / bench_dense, cold start")
     t12 = time.perf_counter()
     tools = tool_paths(smi, frames, {"overrides": overrides5, "chunk_dev_ms": chunk_dev_ms,
                                      "planes": planes, "meta": meta})
     max_err = max(max_err, float(tools["mismatches"]))
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+    phase(f"13/13 YOLOv8s training at {SIZE} (B = 16, bf16, EMA) with validation through K1, "
+          "checkpoint and resume, QAT into int8, selftest_e2e_torch, train_embedder_torch")
+    t13 = time.perf_counter()
+    training = training_paths(smi)
+    max_err = max(max_err, float(training["val"]["mismatches"]))
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                **live["launches"], **trackers["launches"], **multi["launches"],
                **serving["launches"], **resume["launches"], **quant["launches"],
-               **tools["launches"]}
+               **tools["launches"], **training["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3226,7 +3697,8 @@ def main() -> int:
                  "bound_ms": t["bound"][0], "bound_by": t["bound"][1]}
            for key, t in (("b1_served", serving["b1"]),            # phase 9 (c)
                           ("b1_detect", serving["b1_detect"]),     # phase 9 (g), K = 1000
-                          ("dense64", tools["dense_k1"]))},        # phase 12 (d), K = 512
+                          ("dense64", tools["dense_k1"]),          # phase 12 (d), K = 512
+                          ("b1_train_val", training["val_k1"]))},  # phase 13 (b), K = 1000
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

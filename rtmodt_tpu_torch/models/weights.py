@@ -109,6 +109,21 @@ def embedder_params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Ten
     return sd
 
 
+def embedder_to_jax(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of ``embedder_params_from_jax``: an ``AppearanceEmbedder``
+    as the 14 flat flax arrays (OIHW -> HWIO, Linear ``(out, in)`` -> Dense
+    ``(in, out)``), float32, the ``.npz`` layout ``init_embedder`` loads."""
+    flat: dict[str, np.ndarray] = {}
+    for name, t in model.state_dict().items():
+        layer, leaf = name.rsplit(".", 1)
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr = np.transpose(arr, (2, 3, 1, 0)) if arr.ndim == 4 else arr.T
+        flat[f"params/{layer}/{'kernel' if leaf == 'weight' else 'bias'}"] = \
+            np.ascontiguousarray(arr)
+    return flat
+
+
 # -- ultralytics checkpoints --------------------------------------------------
 
 # ultralytics DetectionModel layer index -> the module name here (and in Flax)

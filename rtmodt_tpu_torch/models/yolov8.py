@@ -8,6 +8,23 @@ follow the reference's Flax names (``stem``, ``c2f1.m0.cv1``, ``head.box0_2``
 Layout: the modules take NCHW tensors (run them channels_last on the card);
 the head returns ``(box_dist (N, A, 4*REG_MAX), cls_logits (N, A, nc))`` with
 anchors in the reference's NHWC row-major order (level, row, column).
+
+Eval mode (``model.eval()``) is the inference forward: stock ``BatchNorm2d``
+on the running statistics, in the module's dtype.  Train mode is the
+reference's ``train=True`` forward, flax's ``BatchNorm`` written out rather
+than torch's:
+
+  * the input is cast to the model's ``dtype`` (the reference's compute
+    dtype; parameters stay float32 and are cast per conv);
+  * batch statistics in float32 with flax's fast variance
+    ``max(E[x^2] - E[x]^2, 0)``, which is also the *biased* variance the
+    running statistic takes (``BatchNorm2d`` would take the unbiased one);
+  * running statistics ``ra = 0.97 * ra + 0.03 * batch``, eps 1e-3;
+  * the BN output and the SiLU in float32, then cast to the compute dtype.
+
+``init_params`` is the reference's from-scratch init with flax's
+distributions (truncated-normal LeCun kernels, zero biases, identity BN);
+the draws are torch's from an explicit generator, not flax's.
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ YOLOV8_VARIANTS: dict[str, tuple[float, float, float]] = {
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97
 
 
 def _make_divisible(x: float, divisor: int = 8) -> int:
@@ -56,10 +74,30 @@ class ConvBN(nn.Module):
         self.bn = None if fused else nn.BatchNorm2d(c_out, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.silu(x)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's ``ConvBN(train=True)``: the conv in ``x``'s dtype, then BN
+        on the batch statistics and the SiLU in float32, cast back."""
+        dt = x.dtype
+        y = conv_cast(self.conv, x)
+        if self.bn is None:
+            return F.silu(y)
+        bn = self.bn
+        yf = y.float()
+        mean = yf.mean(dim=(0, 2, 3))
+        var = torch.clamp((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight.float()
+        out = (yf - mean[:, None, None]) * mul[:, None, None] + bn.bias.float()[:, None, None]
+        return F.silu(out).to(dt)
 
     @torch.no_grad()
     def fuse_bn(self) -> None:
@@ -80,6 +118,17 @@ class ConvBN(nn.Module):
         fused.weight.copy_(conv.weight.float() * factor[:, None, None, None])
         fused.bias.copy_(bn.bias.float() - bn.running_mean.float() * factor)
         self.conv, self.bn = fused, None
+
+
+def conv_cast(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` with its parameters cast to ``x``'s dtype (flax's ``Conv``
+    with float32 params and a lower compute dtype)."""
+    dt = x.dtype
+    w = conv.weight if conv.weight.dtype == dt else conv.weight.to(dt)
+    b = conv.bias
+    if b is not None and b.dtype != dt:
+        b = b.to(dt)
+    return F.conv2d(x, w, b, conv.stride, conv.padding)
 
 
 class Bottleneck(nn.Module):
@@ -152,10 +201,11 @@ class DetectHead(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         box_out, cls_out = [], []
+        last = conv_cast if self.training else (lambda conv, x: conv(x))
         for i, f in enumerate(feats):
-            b = getattr(self, f"box{i}_2")(getattr(self, f"box{i}_1")(
+            b = last(getattr(self, f"box{i}_2"), getattr(self, f"box{i}_1")(
                 getattr(self, f"box{i}_0")(f)))
-            c = getattr(self, f"cls{i}_2")(getattr(self, f"cls{i}_1")(
+            c = last(getattr(self, f"cls{i}_2"), getattr(self, f"cls{i}_1")(
                 getattr(self, f"cls{i}_0")(f)))
             n = f.shape[0]
             # NCHW -> NHWC before the reshape: the reference's anchor order
@@ -168,8 +218,9 @@ class YOLOv8(nn.Module):
     """Backbone -> PAN neck -> decoupled head; raw (box_dist, cls_logits)."""
 
     def __init__(self, num_classes: int = 80, depth: float = 0.34, width: float = 0.50,
-                 ratio: float = 2.0, fused: bool = False):
+                 ratio: float = 2.0, fused: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype     # the train-mode compute dtype
         ch = lambda c: _scale_channels(c, width)  # noqa: E731
         c5 = _make_divisible(512 * width * ratio, 8)
         d = lambda n: _depth(n, depth)  # noqa: E731
@@ -194,6 +245,8 @@ class YOLOv8(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``x`` (N, 3, S, S) RGB in [0, 1] -> (box_dist, cls_logits)."""
+        if self.training:
+            x = x.to(self.dtype)
         x = self.c2f1(self.down1(self.stem(x)))
         p3 = self.c2f2(self.down2(x))
         p4 = self.c2f3(self.down3(p3))
@@ -214,11 +267,37 @@ class YOLOv8(nn.Module):
 
 
 def build_model(variant: str = "yolov8s", num_classes: int = 80,
-                fused: bool = False) -> YOLOv8:
+                fused: bool = False, dtype: torch.dtype = torch.float32) -> YOLOv8:
+    """``dtype`` is the train-mode compute dtype; parameters are float32."""
     if variant not in YOLOV8_VARIANTS:
         raise KeyError(f"unknown model '{variant}'; choose from {sorted(YOLOV8_VARIANTS)}")
     depth, width, ratio = YOLOV8_VARIANTS[variant]
-    return YOLOv8(num_classes, depth, width, ratio, fused)
+    return YOLOv8(num_classes, depth, width, ratio, fused, dtype)
+
+
+# flax's truncated_normal draws from [-2, 2] and rescales by this stddev of
+# the unit normal truncated there, so the kernel's variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default init of the reference's model: conv kernels
+    ``lecun_normal`` (a truncated normal of variance 1 / fan_in), biases 0,
+    BN scale 1, bias 0, mean 0, variance 1.  The draws come from
+    ``generator`` in module order; they are torch's, not flax's."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            std = 1.0 / math.sqrt(m.weight[0].numel()) / _TRUNC_STD
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+            m.reset_running_stats()
+    return model
 
 
 def make_anchors(input_size: int, strides: Sequence[int] = STRIDES,
@@ -233,3 +312,17 @@ def make_anchors(input_size: int, strides: Sequence[int] = STRIDES,
         pts.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1) * s)
         strs.append(torch.full((n * n, 1), float(s), dtype=torch.float32, device=device))
     return torch.cat(pts, dim=0), torch.cat(strs, dim=0)
+
+
+def decode_predictions(box_dist: torch.Tensor, cls_logits: torch.Tensor, input_size: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-grid DFL decode: xyxy boxes (N, A, 4) in input pixels and
+    sigmoid scores (N, A, nc), in float32.  Each of l/t/r/b is the
+    expectation of a softmax over REG_MAX bins times the anchor's stride."""
+    n, a, _ = box_dist.shape
+    anchors, strides = make_anchors(input_size, device=box_dist.device)
+    dist = box_dist.float().reshape(n, a, 4, REG_MAX)
+    bins = torch.arange(REG_MAX, dtype=torch.float32, device=box_dist.device)
+    ltrb = torch.sum(torch.softmax(dist, dim=-1) * bins, dim=-1) * strides[None]
+    boxes = torch.cat([anchors[None] - ltrb[..., :2], anchors[None] + ltrb[..., 2:]], dim=-1)
+    return boxes, torch.sigmoid(cls_logits.float())

@@ -1,6 +1,9 @@
-"""Vectorized IoU and box-format conversions (port of ``rtmodt_tpu/ops/iou.py``)."""
+"""Vectorized IoU, complete IoU and box-format conversions (port of
+``rtmodt_tpu/ops/iou.py``)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,6 +23,27 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.T
     """Pairwise IoU matrix between (..., M, 4) and (..., N, 4) xyxy boxes ->
     (..., M, N) (leading axes broadcast: one matrix per stream)."""
     return box_iou(a[..., :, None, :], b[..., None, :, :], eps=eps)
+
+
+def ciou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Complete IoU of aligned xyxy boxes (..., 4) -> (...), the YOLOv8 box
+    loss's term.  As in the reference, the gradient flows through the aspect
+    term's ``alpha`` too (ultralytics computes ``alpha`` without gradient)."""
+    iou = box_iou(a, b, eps)
+    c_lt = torch.minimum(a[..., :2], b[..., :2])            # enclosing box
+    c_rb = torch.maximum(a[..., 2:], b[..., 2:])
+    c_wh = (c_rb - c_lt).clamp(min=0.0)
+    c2 = c_wh[..., 0] ** 2 + c_wh[..., 1] ** 2 + eps
+    ac = (a[..., :2] + a[..., 2:]) * 0.5                    # center distance
+    bc = (b[..., :2] + b[..., 2:]) * 0.5
+    rho2 = torch.sum((ac - bc) ** 2, dim=-1)
+    aw = a[..., 2] - a[..., 0]
+    ah = a[..., 3] - a[..., 1]
+    bw = b[..., 2] - b[..., 0]
+    bh = b[..., 3] - b[..., 1]
+    v = (4.0 / math.pi ** 2) * (torch.atan(bw / (bh + eps)) - torch.atan(aw / (ah + eps))) ** 2
+    alpha = v / (v - iou + 1.0 + eps)
+    return iou - rho2 / c2 - alpha * v
 
 
 def xyxy_to_cxcyah(xyxy: torch.Tensor) -> torch.Tensor:

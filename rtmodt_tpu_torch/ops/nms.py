@@ -16,6 +16,11 @@ Top-k is a stable descending sort, so equal values keep index order as
 ``lax.top_k`` does; ``topk_impl: approx`` is exact here, as it is on the
 reference's CPU backend.
 
+``batched_nms_fixed`` is the reference's NMS of one frame's decoded boxes
+and per-class scores (training validation, K = 1000 candidates): the
+confidence gate on the best class score, a stable top-k, then the same
+suppress-and-pack with K1.
+
 ``nms_debug_from_logits`` is the reference's diagnostic (rounds, pool used,
 kept) over one frame: it runs the reference's fixpoint formulation of greedy
 suppression (``greedy_suppress_fixpoint``) in plain torch to count its
@@ -131,6 +136,27 @@ def batched_nms_from_logits(box_dist: torch.Tensor, cls_logits: torch.Tensor,
         box_dist, cls_logits, input_size, conf_thresh, num_candidates, class_mask)
     return suppress_and_pack(cand_boxes, cand_scores, cand_classes, iou_thresh,
                              max_det, agnostic)
+
+
+def batched_nms_fixed(boxes: torch.Tensor, class_scores: torch.Tensor, conf_thresh: float,
+                      iou_thresh: float, max_det: int = 100, num_candidates: int = 300
+                      ) -> NMSResult:
+    """Class-aware NMS of one frame: ``boxes`` (A, 4) xyxy decoded,
+    ``class_scores`` (A, C) post-sigmoid.  The result's arrays have no batch
+    axis (``count`` is a 0-d tensor)."""
+    f32 = torch.float32
+    boxes = boxes.to(f32)
+    class_scores = class_scores.to(f32)
+    best_score, best_class = class_scores.max(dim=-1)
+    gated = torch.where(best_score >= conf_thresh, best_score, -1.0)
+    k = min(num_candidates, boxes.shape[0])
+    top_scores, top_idx = _stable_topk(gated, k)
+    cand_boxes = boxes[top_idx]
+    cand_classes = best_class[top_idx].to(torch.int32)
+    cand_scores = torch.where(top_scores > 0.0, top_scores, 0.0)
+    res = suppress_and_pack(cand_boxes[None], cand_scores[None], cand_classes[None],
+                            iou_thresh, max_det)
+    return NMSResult(*(x[0] for x in res))
 
 
 def greedy_suppress_fixpoint(iou: torch.Tensor, scores: torch.Tensor, iou_thresh: float

@@ -2,8 +2,9 @@
 
 The port's copies of the reference package's generators of the same names,
 pixel for pixel: ``moving_boxes_frame`` (numpy only), ``write_synthetic_video``,
-``dense_moving_scene`` and ``reid_patch`` (cv2 draws the shapes and writes the
-file; it is imported inside the functions that need it)."""
+``dense_moving_scene``, ``cluttered_scene`` and ``reid_patch`` (cv2 draws the
+shapes and writes the file; it is imported inside the functions that need
+it)."""
 
 from __future__ import annotations
 
@@ -166,6 +167,66 @@ def _occlusion_keep(boxes_a: np.ndarray, thresh: float = 0.7) -> np.ndarray:
         if covered / area > thresh:
             keep[i] = False
     return keep
+
+
+def cluttered_scene(
+    idx: int,
+    h: int = 512,
+    w: int = 512,
+    n_classes: int = 8,
+    min_objects: int = 3,
+    max_objects: int = 14,
+    seed: int = 0,
+):
+    """Render one multi-class detection scene with clutter and occlusion.
+
+    A harder synthetic than ``moving_boxes_frame`` (training data for more
+    than single-class rectangles): 8 shape classes at 3x scale variation, textured gradient+noise
+    background, distractor strokes that are NOT objects, and real occlusion
+    (later shapes draw over earlier ones; boxes with > 70% of their area
+    covered are dropped from the labels, like crowd-filtered GT).
+
+    Deterministic in (idx, seed).  Returns (frame BGR uint8, boxes (N,4)
+    xyxy f32, labels (N,) i32).
+    """
+    import cv2
+
+    rng = np.random.default_rng((seed << 20) ^ idx)
+    n_classes = min(n_classes, len(SHAPE_CLASSES))
+
+    # background: directional gradient + per-pixel noise + big soft blobs
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi)
+    base = (np.cos(ang) * gx / w + np.sin(ang) * gy / h)
+    base = (base - base.min()) / (np.ptp(base) + 1e-9)
+    bg = (30 + 70 * base)[..., None] * rng.uniform(0.5, 1.0, (3,))
+    frame = np.clip(bg + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+    for _ in range(rng.integers(2, 6)):       # distractor strokes (no label)
+        p1 = rng.integers(0, [w, h]); p2 = rng.integers(0, [w, h])
+        cv2.line(frame, tuple(p1), tuple(p2),
+                 tuple(int(c) for c in rng.integers(40, 120, 3)),
+                 int(rng.integers(1, 4)))
+
+    n = int(rng.integers(min_objects, max_objects + 1))
+    order = []
+    for _ in range(n):
+        cls = int(rng.integers(0, n_classes))
+        s = int(rng.uniform(0.05, 0.16) * min(h, w) * rng.choice([1.0, 1.0, 2.0]))
+        s = max(12, min(s, min(h, w) // 3))
+        cx = int(rng.uniform(s, w - s)); cy = int(rng.uniform(s, h - s))
+        color = tuple(int(c) for c in rng.integers(90, 255, 3))
+        order.append((cls, cx, cy, s, color))
+
+    boxes, labels = [], []
+    for cls, cx, cy, s, color in order:
+        boxes.append(_draw_shape(frame, cls, cx, cy, s, color))
+        labels.append(cls)
+
+    # occlusion filter: drop a box when later shapes cover > 70% of it
+    boxes_a = np.asarray(boxes, np.float32)
+    keep = _occlusion_keep(boxes_a)
+    boxes_a = np.clip(boxes_a[keep], 0, [w - 1, h - 1, w - 1, h - 1])
+    return frame, boxes_a, np.asarray(labels, np.int32)[keep]
 
 
 def reid_patch(

@@ -31,7 +31,8 @@ importlib.import_module("tools.run_pipeline_torch")
 importlib.import_module("tools.compare_trackers_torch")
 importlib.import_module("tools.run_inference_torch")
 importlib.import_module("tools.verify_parity_torch")
-for tool in ("trace_chunk", "benchmark", "bench_latency", "bench_dense", "export_model"):
+for tool in ("trace_chunk", "benchmark", "bench_latency", "bench_dense", "export_model",
+             "make_dataset", "train", "train_embedder", "selftest_e2e"):
     importlib.import_module(f"tools.{tool}_torch")
 importlib.import_module("start_torch")
 from rtmodt_tpu_torch.config import load_config
@@ -80,7 +81,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.runtime.state_store", "rtmodt_tpu_torch.ops.polygon",
                 "rtmodt_tpu_torch.quant", "rtmodt_tpu_torch.quant.ptq",
                 "rtmodt_tpu_torch.ops.int8_conv", "rtmodt_tpu_torch.events.mqtt",
-                "rtmodt_tpu_torch.profiling.trace_summary"):
+                "rtmodt_tpu_torch.profiling.trace_summary", "rtmodt_tpu_torch.quant.qat",
+                "rtmodt_tpu_torch.training.assigner", "rtmodt_tpu_torch.training.loss",
+                "rtmodt_tpu_torch.training.train_step", "rtmodt_tpu_torch.training.data",
+                "rtmodt_tpu_torch.training.checkpoint", "rtmodt_tpu_torch.training.synth_data",
+                "rtmodt_tpu_torch.training.trainer"):
         assert mod in out["modules"]
     assert len(out["weights_fns"]) == 6        # the .pt route and save_npz, in the port
 
@@ -125,6 +130,22 @@ def test_server_builds_its_detector_on_the_card_or_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         single.get()
     assert single.loaded() is None
+
+
+def test_training_tools_without_the_cpu_flag_need_the_card(monkeypatch, tmp_path):
+    from tools.train_embedder_torch import main as train_embedder
+    from tools.train_torch import main as train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(json.dumps({"model": "yolov8n", "num_classes": 1, "input_size": 64,
+                               "batch_size": 2, "parallel": {"num_devices": 0}}))
+    with pytest.raises(SystemExit) as exc:
+        train(["-c", str(cfg)])
+    assert "CUDA is not available" in str(exc.value.code)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_embedder(["--steps", "1", "--out", str(tmp_path / "e.npz")])
+    assert not (tmp_path / "e.npz").exists()
 
 
 @pytest.mark.parametrize("args", [["detect", "--images", "."], ["track", "--video", "x.mp4"]])
