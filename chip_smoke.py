@@ -120,7 +120,6 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      tool's JSON and K1 launches; K1 bit for bit and timed on the 64-object
      chunk's 512 candidates; (e) the cold start in a fresh process: imports,
      CUDA init, the kernel cache, weights, the first chunk program, warmup;
-     then in a second process on the CUDA JIT cache the first one filled;
  13. training: a rich synthetic set (64 train / 16 val images at 720p, 40 %
      dense crowd frames) -> the port's trainer (``tools/train_torch.py``'s)
      with ``training_rich640d.yaml``'s hyperparameters (YOLOv8s at 640, B =
@@ -141,7 +140,22 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      GEMM per quantized layer and image; (e) ``tools/selftest_e2e_torch.py``
      at its defaults in a child process: IDF1 and MOTA >= 0.95; (f)
      ``tools/train_embedder_torch.py`` for 100 steps: held-out rank-1 and
-     margin before and after, rank-1 must rise.
+     margin before and after, rank-1 must rise;
+ 14. several ranks (``parallel/mesh.py``), two sharing the one card over
+     gloo: (a) the data-parallel step (``training_rich640d.yaml``, global B =
+     16 as 2 x 8): two float32 steps (TF32 off) against the one-process step
+     at B = 16 (loss, grad norm, BN running statistics, parameters), the
+     ranks' parameters compared by an all-reduce, then 8 bf16 steps with each
+     rank's step time, its all-reduces' time and its peak memory; (b) the
+     data-parallel step at world 1 over NCCL against the plain step, bit for
+     bit, with deterministic algorithms; (c) ``MultiStreamPipeline`` at S =
+     4, T = 8, 64 frames a stream, float32, two ranks of two streams against
+     one process: tracks of packed chunks, K1 bit for bit on each rank,
+     ``run``'s events per stream, K1's launches on each rank; (d) a two-rank
+     ``run`` with snapshots whose rank 1 dies half-way, resumed from its
+     snapshot under one rank and under two: the uninterrupted events; (e)
+     ``tools/dryrun_multichip_torch.py`` on the two ranks, and the CLI with
+     four ``-s`` on one card, in its own process.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -237,10 +251,10 @@ PT_FRAMES = 4          # phase-5 frames detected through the .pt and .npz routes
 TRACE_FRAMES = 4       # profiling.trace_frames of the traced chunked run: 4 chunks
 TRACE_TOL = 0.12       # the trace's device ms/frame against phase 5's profiler reading
 TOOL_ITERS = 4         # trace_chunk_torch --iters
-BENCH_CHUNK_FRAMES = 64     # benchmark_torch --mode chunked (reference default 200)
-BENCH_STAGE_FRAMES = 48     # benchmark_torch --mode per_stage (reference default 200)
-LATENCY_FRAMES = 120        # bench_latency_torch --frames (reference default 300)
-DENSE_DENSITIES, DENSE_REPS = "8,64", 4   # bench_dense_torch (reference 8,32,64,128 and 8)
+BENCH_CHUNK_FRAMES = 32     # benchmark_torch --mode chunked (reference default 200)
+BENCH_STAGE_FRAMES = 24     # benchmark_torch --mode per_stage (reference default 200)
+LATENCY_FRAMES = 60         # bench_latency_torch --frames (reference default 300)
+DENSE_DENSITIES, DENSE_REPS = "8,64", 2   # bench_dense_torch (reference 8,32,64,128 and 8)
 # phase 13: YOLOv8 training (training_rich640d.yaml's hyperparameters)
 TRAIN_CONFIG = os.path.join(ROOT, "rtmodt_tpu_torch", "config", "training_rich640d.yaml")
 TRAIN_IMAGES, VAL_IMAGES = 64, 16   # the rich synthetic set at 720p, 40 % dense frames
@@ -264,7 +278,22 @@ BF16_LOSS_TOL = 5e-3
 BN_MEAN_TOL = 1.1e-3
 BN_VAR_TOL = 1.5e-3
 BF16_CHECK_BATCHES = 2
-LOADER_AB_STEPS = 6    # steps of each arm of the loader-thread vs pre-built batch loop
+LOADER_AB_STEPS = 3    # steps of each arm of the loader-thread vs pre-built batch loop
+# phase 14: several ranks (the mesh), two ranks sharing the one card over gloo
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+MESH_F32_STEPS = 2      # data-parallel float32 steps against the one-process step
+MESH_BF16_STEPS = 8     # timed bf16 steps
+MESH_BATCH = 16         # the global batch (training_rich640d.yaml's)
+# two ranks x 8 against one process at B = 16, float32 with TF32 off: the
+# same arithmetic but for the order of the sums (the BN statistics' two
+# halves, the gradients' two parts) and cuDNN's algorithms at B = 8; Adam
+# moves a parameter by at most about the step's lr, so a flipped sign of a
+# gradient near 0 moves it by up to twice that
+MESH_LOSS_TOL = 1e-4    # relative, loss and its parts
+MESH_NORM_TOL = 1e-3    # relative, the global gradient norm
+MESH_BN_TOL = 1e-4      # BN running statistics, relative to each tensor's max |value|
+MESH_KILL_CHUNK = 5     # (d): rank 1 dies before its sixth chunk
+MESH_INTERVAL = 2 * S_STREAMS * T_MULTI   # (d): a snapshot every two chunks
 
 
 def phase(msg: str) -> None:
@@ -2958,10 +2987,10 @@ def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
                                f"B = {K}, K = {dd.nms_candidates}, {densities[-1]} objects")
     del ddet, pipe
 
-    # (e) cold start in fresh processes.  The first calls (first conv, first
-    # forward, first chunk program: cuDNN's first plans) are one cost; a
-    # second process on the CUDA JIT cache the first one filled (and the page
-    # cache it warmed) asks whether anything cacheable removes it
+    # (e) cold start in a fresh process.  The first calls (first conv, first
+    # forward, first chunk program: cuDNN's first plans) are one cost (PR 12
+    # also ran a second process on the CUDA JIT cache the first one filled:
+    # no cache the port keeps removes it)
     code = ("import json, sys, time\n"
             f"ROOT, DEVICE, H, W, K, SIZE = {ROOT!r}, {DEVICE!r}, {H}, {W}, {K}, {SIZE}\n"
             f"OVERRIDES = json.loads({json.dumps(five['overrides'])!r})\n" + _COLD_START)
@@ -2969,7 +2998,7 @@ def tool_paths(smi: str, frames: np.ndarray, five: dict) -> dict:
     env = {**os.environ, "CUDA_CACHE_PATH": jit_cache}
     env.pop("CUDA_MODULE_LOADING", None)
     r["cold_start"] = {}
-    for key, extra in (("first", {}), ("second", {})):
+    for key, extra in (("first", {}),):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                               text=True, timeout=600, env={**env, **extra})
@@ -3397,6 +3426,507 @@ def training_paths(smi: str) -> dict:
     return out
 
 
+def _rank_timer(dev: torch.device):
+    """(start, stop) -> ms on the card's clock (CUDA events) or the host's."""
+    if dev.type == "cuda":
+        def start():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def stop(e0):
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            return (e0, e1)
+        return start, stop, lambda pair: pair[0].elapsed_time(pair[1])
+    return (time.perf_counter, lambda t0: (t0, time.perf_counter()),
+            lambda pair: (pair[1] - pair[0]) * 1e3)
+
+
+def _mesh_model(p: dict, dtype: torch.dtype, dev: torch.device):
+    from rtmodt_tpu_torch.models.weights import load_into, load_npz
+    from rtmodt_tpu_torch.models.yolov8 import build_model
+
+    m = build_model(p["model"], 8, dtype=dtype)
+    load_into(m, load_npz(p["weights"]))
+    m = m.to(dev)
+    if dev.type == "cuda":
+        m.to(memory_format=torch.channels_last)
+    return m
+
+
+def _mesh_optimizer(p: dict):
+    from rtmodt_tpu_torch.training.train_step import make_optimizer, make_schedule
+
+    o = p["opt"]
+    return make_optimizer(make_schedule(o["lr0"], o["lrf"], o["total"], o["warmup"]),
+                          o["weight_decay"], o["clip_norm"])
+
+
+def _mesh_train(mesh, p: dict) -> dict:
+    """Phase 14 (a) in one rank: the data-parallel steps in float32 (TF32
+    off), the ranks' parameters compared by an all-reduce, then timed bf16
+    steps with each all-reduce's time (CUDA events) and the peak memory."""
+    import torch.distributed as dist
+
+    from rtmodt_tpu_torch.parallel.mesh import all_reduce_sum, replicate
+    from rtmodt_tpu_torch.training.train_step import Batch, TrainState, make_sharded_train_step
+
+    dev = mesh.device
+    batches = [Batch(*(torch.from_numpy(a) for a in arrs)) for arrs in p["batches"]]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    m = replicate(_mesh_model(p, torch.float32, dev), mesh)
+    tx = _mesh_optimizer(p)
+    st = TrainState(m, tx.init(dict(m.named_parameters())))
+    step_fn, put = make_sharded_train_step(m, tx, p["size"], mesh)
+    f32 = []
+    for b in batches[:p["f32_steps"]]:
+        st, mt = step_fn(st, put(b))
+        f32.append({k: float(v) for k, v in mt.items()})
+    with torch.no_grad():
+        flat = torch.cat([v.detach().reshape(-1).double() for v in m.state_dict().values()
+                          if v.is_floating_point()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        apart = float(all_reduce_sum((flat - ref).abs().sum()[None])[0])
+    state = ({k: v.detach().cpu() for k, v in m.state_dict().items()} if mesh.rank == 0
+             else None)
+    del st, m, step_fn
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+
+    m = replicate(_mesh_model(p, torch.bfloat16, dev), mesh)
+    tx = _mesh_optimizer(p)
+    st = TrainState(m, tx.init(dict(m.named_parameters())))
+    step_fn, put = make_sharded_train_step(m, tx, p["size"], mesh)
+    start, stop, ms = _rank_timer(dev)
+    calls: list[list] = []
+    inner = dist.all_reduce
+
+    def timed(t, *a, **k):
+        t0 = start()
+        r = inner(t, *a, **k)
+        calls[-1].append(stop(t0))
+        return r
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps, bf16 = [], []
+    dist.all_reduce = timed
+    try:
+        for i in range(p["bf16_steps"]):
+            b = put(batches[i % len(batches)])
+            calls.append([])
+            t0 = start()
+            st, mt = step_fn(st, b)
+            steps.append(stop(t0))
+            bf16.append(mt)
+    finally:
+        dist.all_reduce = inner
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"f32": f32, "apart": apart, "state": state,
+            "bf16_loss": [float(x["loss"]) for x in bf16],
+            "step_ms": [ms(x) for x in steps],
+            "allreduce_ms": [sum(ms(x) for x in c) for c in calls],
+            "allreduce_calls": len(calls[0]),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+
+
+def _mesh_stream_chunks(msp, p: dict) -> tuple[list, int, int]:
+    """This rank's streams of the clips in packed chunks of T through
+    ``submit_chunk_packed``: the host tracks of each chunk, and K1 against
+    its plain version on the last chunk's candidates (mismatches, valid)."""
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET, candidates_from_logits
+    from rtmodt_tpu_torch.ops.yuv import pack_chunk, planar_letterbox
+
+    mine = p["files"][msp.stream_slice]
+    frames = _read_clips(mine, p["frames"])                  # (N, L, H, W, 3)
+    t, n, s = p["t"], p["frames"], len(mine)
+    h, w = frames.shape[2:4]
+    tracks = []
+    for c in range(n // t):
+        planes, meta = pack_chunk(frames[c * t:(c + 1) * t].reshape(t * s, h, w, 3), p["size"])
+        outs, _ = msp.submit_chunk_packed(tuple(x.reshape(t, s, *x.shape[1:]) for x in planes),
+                                          h, w)
+        tracks.append({k: getattr(outs, k).cpu().numpy()
+                       for k in ("track_id", "visible", "boxes")})
+    d, pipe = msp.cfg.detection, msp._pipe
+    with torch.no_grad():
+        yuv = tuple(torch.from_numpy(x).to(msp.device) for x in planes)
+        img = planar_letterbox(*yuv, p["size"], meta.pad_left, meta.pad_top,
+                               dtype=pipe.detector.dtype).permute(0, 3, 1, 2)
+        bd, cl = pipe.detector.model(img)
+        cb, cs, cc, _ = candidates_from_logits(bd, cl, p["size"], d.conf_threshold,
+                                               p["candidates"], pipe.detector._class_mask)
+        off = (cb + (cc.float() * CLASS_OFFSET)[..., None]).contiguous()
+        cs = cs.contiguous()
+    want = nms_kernel.greedy_suppress_reference(off, cs, d.iou_threshold)
+    got = nms_kernel.greedy_suppress(off, cs, d.iou_threshold)
+    return tracks, int((got.cpu() != want.cpu()).sum()), int((cs > 0).sum())
+
+
+def _mesh_streams(mesh, p: dict) -> dict:
+    """Phase 14 (c) in one rank: its two streams in packed chunks (tracks,
+    K1 bit for bit), then ``MultiStreamPipeline.run`` on the four files
+    with K1's launches counted."""
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    msp = MultiStreamPipeline(load_config(overrides=p["cfg"]), len(p["files"]), mesh=mesh)
+    tracks, k1_diff, k1_valid = _mesh_stream_chunks(msp, p)
+    msp.reset()
+    c0 = msp.chunks_submitted
+    nms_kernel.launches = 0
+    summary = msp.run(p["files"])
+    return {"streams": (msp.stream_slice.start, msp.stream_slice.stop), "tracks": tracks,
+            "k1_mismatches": k1_diff, "k1_valid": k1_valid, "summary": summary,
+            "launches": nms_kernel.launches, "chunks": msp.chunks_submitted - c0}
+
+
+def _mesh_rank(mesh, p: dict) -> dict:
+    """Phase 14 (a) and (c) in one rank (one process start for both)."""
+    return {"rank": mesh.rank, "train": _mesh_train(mesh, p["train"]),
+            "streams": _mesh_streams(mesh, p["streams"])}
+
+
+def _mesh_killed_rank(mesh, p: dict) -> dict:
+    """Phase 14 (d): ``run`` with snapshots in which rank ``kill_rank``
+    dies (``os._exit(9)``) before its chunk ``kill_chunk + 1``."""
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    msp = MultiStreamPipeline(load_config(overrides=p["cfg"]), len(p["files"]), mesh=mesh)
+    inner = msp.submit_chunk_packed
+
+    def submit(*a, **k):
+        if mesh.rank == p["kill_rank"] and msp.chunks_submitted >= p["kill_chunk"]:
+            os._exit(9)
+        return inner(*a, **k)
+
+    msp.submit_chunk_packed = submit
+    return {"summary": msp.run(p["files"], state_path=p["snap"],
+                               state_interval=p["interval"])}
+
+
+def _mesh_resumed_rank(mesh, cfg: dict, files: list, snap: str) -> dict:
+    """Phase 14 (d): ``run`` resumed from ``snap`` in one rank, float32 with
+    TF32 off."""
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.parallel.ranks import multistream_run
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return multistream_run(mesh, load_config(overrides=cfg), files, {"state_path": snap})
+
+
+def _stream_events(path: str) -> dict[int, list]:
+    """A log's events by stream, less ``timestamp_utc``, in a fixed order."""
+    by: dict[int, list] = {}
+    for r in _event_rows(path):
+        by.setdefault(r["metadata"]["stream"], []).append(r)
+    key = lambda r: json.dumps({k: v for k, v in r.items() if k != "bbox_xyxy"},  # noqa: E731
+                               sort_keys=True)
+    return {s: sorted(rows, key=key) for s, rows in by.items()}
+
+
+def _same_stream_events(got_log: str, want_log: str, what: str) -> tuple[int, float]:
+    """Fail unless each stream's events are the same (``bbox_xyxy`` within
+    INDEP_BOX_TOL px; lines of several ranks interleave); (events, box gap)."""
+    got, want = _stream_events(got_log), _stream_events(want_log)
+    if not want:
+        fail(f"{what}: the reference run wrote no event")
+    gap = 0.0
+    for s in sorted(set(got) | set(want)):
+        g, w = got.get(s, []), want.get(s, [])
+        if len(g) != len(w):
+            fail(f"{what}: stream {s} has {len(g)} events against {len(w)}")
+        for a, b in zip(g, w):
+            gap = max(gap, float(np.abs(np.subtract(a["bbox_xyxy"], b["bbox_xyxy"])).max()))
+            if {k: v for k, v in a.items() if k != "bbox_xyxy"} != \
+                    {k: v for k, v in b.items() if k != "bbox_xyxy"}:
+                fail(f"{what}: stream {s}: event {a} against {b}")
+    if gap > INDEP_BOX_TOL:
+        fail(f"{what}: event boxes {gap} px apart (> {INDEP_BOX_TOL})")
+    return sum(len(v) for v in want.values()), gap
+
+
+def mesh_paths(smi: str) -> dict:
+    """Phase 14: several ranks (two sharing the card over gloo; NCCL at
+    world 1): the data-parallel step against the one-process step, the
+    sharded step at world 1 bit for bit, S = 4 streams split over two ranks
+    against one process, a two-rank run killed and resumed under one and
+    two ranks, the dry run and the CLI with four streams on one card."""
+    import shutil
+
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import DEFAULTS
+    from rtmodt_tpu_torch.config.loader import _deep_merge as _merge
+    from rtmodt_tpu_torch.ops import nms_kernel
+    from rtmodt_tpu_torch.parallel import mesh as M
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.parallel.ranks import plain_vs_sharded
+    from rtmodt_tpu_torch.training.data import AugConfig, YoloDataset
+    from rtmodt_tpu_torch.training.synth_data import make_synthetic_rich
+    from rtmodt_tpu_torch.training.train_step import Batch, TrainState, train_step
+    from rtmodt_tpu_torch.training.trainer import load_train_config
+
+    out: dict = {"launches": {}, "mismatches": 0}
+    mesh = M.create_mesh(devices=MESH_DEVICES)
+    print(f"  mesh: {mesh.names}, backend {mesh.backend} ({smi})", flush=True)
+
+    # the global batches of training_rich640d.yaml from phase 13's data
+    data = os.path.join(OUT_DIR, "train_rich")
+    if not os.path.isdir(os.path.join(data, "images", "train")):
+        make_synthetic_rich(data, TRAIN_IMAGES, VAL_IMAGES, H, W, 8, seed=0, dense_frac=0.4)
+    tcfg = load_train_config(TRAIN_CONFIG, data_root=data)
+    ds = YoloDataset(data, "train", SIZE, tcfg["data"]["max_boxes"], augment=True,
+                     aug=AugConfig(**tcfg.get("augmentation", {})))
+    batches = [tuple(x.numpy() for x in ds.make_batch(MESH_BATCH))
+               for _ in range(MESH_F32_STEPS)]
+    o = tcfg["optimizer"]
+    opt = {"lr0": o["lr0"], "lrf": o["lrf"], "total": STEPS_PER_EPOCH * tcfg["epochs"],
+           "warmup": STEPS_PER_EPOCH * o["warmup_epochs"],
+           "weight_decay": o["weight_decay"], "clip_norm": o["clip_norm"]}
+    train_p = {"model": TRAIN_MODEL, "weights": TRAIN_WEIGHTS, "size": SIZE, "batches": batches, "opt": opt,
+               "f32_steps": MESH_F32_STEPS, "bf16_steps": MESH_BF16_STEPS}
+
+    # the streams of (c): phase 8's clips
+    files = [os.path.join(OUT_DIR, f"multi{si}.mp4") for si in range(S_STREAMS)]
+    for si, path in enumerate(files):
+        if not os.path.exists(path):
+            _write_clip(path, N_MULTI, H, W, 37 * si)
+    whole = {"name": "whole_frame", "polygon": [[0, 0], [W, 0], [W, H], [0, H]],
+             "trigger": "intrusion", "dwell_time_sec": 0.5, "cooldown_sec": 2.0}
+    base = {"system": {"device": DEVICE},
+            "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
+                          "weights": WEIGHTS, "half": False},
+            "profiling": {"log_interval": 0}, "visualization": {"enabled": False},
+            "parallel": {"num_streams": S_STREAMS, "chunk_size": T_MULTI,
+                         "pipeline_depth": MULTI_DEPTH}}
+
+    def cfg_for(log: str) -> dict:
+        return _merge(base, {"events": {"zones": DEFAULTS["events"]["zones"] + [whole],
+                                        "alert": {"log_path": log}}})
+
+    logs = {n: os.path.join(OUT_DIR, f"mesh_{n}.jsonl")
+            for n in ("one", "two", "resume1", "resume2")}
+    _fresh(*logs.values())
+    stream_p = {"cfg": cfg_for(logs["two"]), "files": files, "frames": N_MULTI, "t": T_MULTI,
+                "size": SIZE, "candidates": CANDIDATES}
+
+    # (a) + (c) in two ranks on the card
+    print(f"  (a) data-parallel step, {TRAIN_MODEL} at {SIZE}, global B = {MESH_BATCH} as "
+          f"{mesh.world} ranks x {MESH_BATCH // mesh.world}; (c) S = {S_STREAMS} streams, "
+          f"T = {T_MULTI}, {N_MULTI} frames a stream, {S_STREAMS // mesh.world} a rank, "
+          "float32", flush=True)
+    t0 = time.perf_counter()
+    ranks = M.spawn(_mesh_rank, mesh, {"train": train_p, "streams": stream_p}, timeout=900)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) against the one-process step at B = 16, float32 with TF32 off
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    m = _mesh_model(train_p, torch.float32, torch.device(DEVICE))
+    tx = _mesh_optimizer(train_p)
+    st = TrainState(m, tx.init(dict(m.named_parameters())))
+    one = []
+    for arrs in batches:
+        b = Batch(*(torch.from_numpy(a) for a in arrs)).to(DEVICE)
+        st, mt = train_step(st, b, tx=tx, input_size=SIZE)
+        one.append({k: float(v) for k, v in mt.items()})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    want_sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    del st, m
+    got_sd = ranks[0]["train"]["state"]
+    gaps = {"loss": 0.0, "grad_norm": 0.0, "bn": 0.0, "params": 0.0}
+    for g, w in zip(ranks[0]["train"]["f32"], one):
+        for k in ("loss", "box_loss", "cls_loss", "dfl_loss"):
+            gaps["loss"] = max(gaps["loss"], abs(g[k] - w[k]) / max(abs(w[k]), 1e-12))
+        gaps["grad_norm"] = max(gaps["grad_norm"],
+                                abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+        if int(g["num_fg"]) != int(w["num_fg"]):
+            fail(f"(a) num_fg {g['num_fg']} on the ranks against {w['num_fg']}")
+    for k, w in want_sd.items():
+        if not w.is_floating_point():
+            continue
+        d = float((got_sd[k].double() - w.double()).abs().max())
+        if "running" in k:
+            gaps["bn"] = max(gaps["bn"], d / max(float(w.abs().max()), 1e-12))
+        else:
+            gaps["params"] = max(gaps["params"], d)
+    lr2 = ranks[0]["train"]["f32"][-1]["lr"]
+    apart = [r["train"]["apart"] for r in ranks]
+    tr = [r["train"] for r in ranks]
+    out["train"] = {"gaps": gaps, "apart": apart, "lr": lr2,
+                    "step_ms": [t["step_ms"] for t in tr],
+                    "allreduce_ms": [t["allreduce_ms"] for t in tr],
+                    "allreduce_calls": tr[0]["allreduce_calls"],
+                    "peak_bytes": [t["peak_bytes"] for t in tr]}
+    print(f"  (a) float32, TF32 off, {MESH_F32_STEPS} steps against one process at B = "
+          f"{MESH_BATCH}: worst relative gap of the loss and its parts {gaps['loss']:.3e} "
+          f"(tolerance {MESH_LOSS_TOL}), grad norm {gaps['grad_norm']:.3e} ({MESH_NORM_TOL}), "
+          f"BN running statistics {gaps['bn']:.3e} of their max ({MESH_BN_TOL}); parameters "
+          f"{gaps['params']:.3e} apart (the last step's lr {lr2:.3e}); the ranks' parameters "
+          f"and statistics apart by {apart} (sum of |p - p_rank0|, all-reduced)", flush=True)
+    if (gaps["loss"] > MESH_LOSS_TOL or gaps["grad_norm"] > MESH_NORM_TOL
+            or gaps["bn"] > MESH_BN_TOL or gaps["params"] > 2 * lr2 or any(apart)):
+        fail(f"(a) the data-parallel step differs from the one-process step: {gaps}, "
+             f"ranks apart {apart}")
+    for r, t in enumerate(tr):
+        sm, am = sorted(t["step_ms"]), sorted(t["allreduce_ms"])
+        if not np.isfinite(t["bf16_loss"]).all():
+            fail(f"(a) rank {r}: a bf16 loss is not finite")
+        print(f"  (a) rank {r}: {MESH_BF16_STEPS} bf16 steps of B = {MESH_BATCH // mesh.world}: "
+              f"median step {sm[len(sm) // 2]:.2f} ms (min {sm[0]:.2f}, max {sm[-1]:.2f}), of "
+              f"which {t['allreduce_calls']} all-reduces take median {am[len(am) // 2]:.2f} "
+              f"ms a step (CUDA events, gloo through the host); peak "
+              f"{t['peak_bytes'] / 2**30:.2f} GiB allocated ({smi})", flush=True)
+
+    # (c) the streams against one process of S = 4
+    msp = MultiStreamPipeline(load_config(overrides=cfg_for(logs["one"])))
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    want_tracks, k1_one, _ = _mesh_stream_chunks(msp, stream_p)
+    msp.reset()
+    nms_kernel.launches = 0
+    want_sum = msp.run(files)
+    one_launches = nms_kernel.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    got_sum = ranks[0]["streams"]["summary"]
+    vis_diff = id_diff = 0
+    box_gap = 0.0
+    for r in ranks:
+        lo, hi = r["streams"]["streams"]
+        for g, w in zip(r["streams"]["tracks"], want_tracks):
+            gv, wv = g["visible"], w["visible"][:, lo:hi]
+            vis_diff += int((gv != wv).sum())
+            both = gv & wv
+            id_diff += int((g["track_id"][both] != w["track_id"][:, lo:hi][both]).sum())
+            if both.any():
+                box_gap = max(box_gap, float(np.abs(g["boxes"][both]
+                                                    - w["boxes"][:, lo:hi][both]).max()))
+        out["mismatches"] = max(out["mismatches"], r["streams"]["k1_mismatches"])
+        out["launches"][f"multistream_mesh_rank{r['rank']}"] = {
+            "launches": r["streams"]["launches"], "chunks": r["streams"]["chunks"],
+            "frames": sum(got_sum["per_stream_frames"][lo:hi]) if got_sum else None}
+    n_ev, ev_gap = _same_stream_events(logs["two"], logs["one"], "(c) two ranks")
+    print(f"  (c) two ranks against one process, {N_MULTI // T_MULTI} chunks: visibility "
+          f"differs in {vis_diff}, ids in {id_diff}, boxes {box_gap:.2e} px apart (tolerance "
+          f"{INDEP_BOX_TOL}); {n_ev} events equal per stream (boxes {ev_gap:.2e} px); "
+          f"zone counts equal {got_sum['zone_counts'] == want_sum['zone_counts']}; K1 on each "
+          f"rank's last chunk against its plain version: "
+          + ", ".join(f"rank {r['rank']} {r['streams']['k1_mismatches']} mismatches of "
+                      f"{r['streams']['k1_valid']} valid" for r in ranks)
+          + f"; K1 launches in run: {[r['streams']['launches'] for r in ranks]} for "
+          f"{[r['streams']['chunks'] for r in ranks]} chunks (one process: {one_launches}); "
+          f"run's fps aggregate (host clock, float32): two ranks {got_sum['fps_aggregate']}, "
+          f"one process {want_sum['fps_aggregate']}; two ranks {ranks_s:.1f} s with (a)",
+          flush=True)
+    out["fps_aggregate"] = {"ranks": got_sum["fps_aggregate"],
+                            "one": want_sum["fps_aggregate"]}
+    if (vis_diff or id_diff or box_gap > INDEP_BOX_TOL or out["mismatches"]
+            or got_sum["zone_counts"] != want_sum["zone_counts"]
+            or got_sum["per_stream_frames"] != want_sum["per_stream_frames"]
+            or any(r["streams"]["launches"] == 0 for r in ranks)):
+        fail("(c) the streams over two ranks differ from one process, or K1 was not launched")
+
+    # (b) NCCL at world 1: the data-parallel step is the plain step bit for bit
+    one_card = M.create_mesh(devices=[MESH_DEVICES[0]])
+    t0 = time.perf_counter()
+    spec = {"model": TRAIN_MODEL, "num_classes": 8, "input_size": SIZE,
+            "state": _mesh_model(train_p, torch.float32, torch.device("cpu")).state_dict(),
+            "batches": batches, "optimizer": opt}
+    b_out = M.spawn(plain_vs_sharded, one_card, spec, timeout=900)[0]
+    out["nccl"] = {k: b_out[k] for k in ("backend", "gap_sharded", "gap_repeat")}
+    print(f"  (b) world 1 over {b_out['backend']} ({one_card.backend} chosen for "
+          f"{one_card.names}): the sharded step against the plain step, {len(batches)} float32 "
+          f"steps with deterministic algorithms: parameter and statistic gap "
+          f"{b_out['gap_sharded']} (the plain step repeated: {b_out['gap_repeat']}); metrics "
+          f"equal {b_out['metrics']['sharded'] == b_out['metrics']['plain']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (b_out["backend"] != one_card.backend or b_out["gap_sharded"] != 0.0
+            or b_out["gap_repeat"] != 0.0
+            or b_out["metrics"]["sharded"] != b_out["metrics"]["plain"]):
+        fail("(b) the world-1 data-parallel step is not the plain step bit for bit")
+
+    # (d) two ranks killed half-way, resumed under one rank and under two
+    snap = os.path.join(OUT_DIR, "mesh_snap.npz")
+    kill_log = os.path.join(OUT_DIR, "mesh_killed.jsonl")
+    _fresh(snap, kill_log)
+    kill_p = {"cfg": cfg_for(kill_log), "files": files, "snap": snap,
+              "interval": MESH_INTERVAL, "kill_rank": 1, "kill_chunk": MESH_KILL_CHUNK}
+    try:
+        M.spawn(_mesh_killed_rank, mesh, kill_p, timeout=600)
+        fail("(d) the killed run ended without the kill")
+    except RuntimeError as e:
+        if "exited with code 9" not in str(e):
+            raise
+    with np.load(snap) as z:
+        meta = json.loads(str(z["meta"]))
+    offset = meta["engines"][0]["log_offset"]
+    resumed = {}
+    for n, log in (("1", logs["resume1"]), ("2", logs["resume2"])):
+        with open(kill_log, "rb") as f, open(log, "wb") as g:
+            g.write(f.read()[:offset])
+        shutil.copy(snap, snap + n)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    resumed["1"] = MultiStreamPipeline(load_config(overrides=cfg_for(logs["resume1"]))).run(
+        files, state_path=snap + "1")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    res2 = M.spawn(_mesh_resumed_rank, mesh, cfg_for(logs["resume2"]), files, snap + "2",
+                   timeout=600)
+    resumed["2"] = res2[0]["summary"]
+    checks = {n: _same_stream_events(logs[f"resume{n}"], logs["one"], f"(d) resumed under {n}")
+              for n in ("1", "2")}
+    print(f"  (d) two ranks killed before chunk {MESH_KILL_CHUNK + 1} (rank 1 exits 9; the "
+          f"snapshot at {meta['per_stream_frames']} frames a stream, the log cut at {offset} "
+          "B), resumed: " + "; ".join(
+              f"under {n} rank(s): per_stream_frames {resumed[n]['per_stream_frames']}, "
+              f"{checks[n][0]} events equal per stream to one process's (boxes "
+              f"{checks[n][1]:.2e} px)" for n in ("1", "2")), flush=True)
+    for n in ("1", "2"):
+        if (resumed[n]["per_stream_frames"] != want_sum["per_stream_frames"]
+                or resumed[n]["zone_counts"] != want_sum["zone_counts"]):
+            fail(f"(d) resumed under {n}: {resumed[n]}")
+
+    # (e) the dry run on two ranks of the card, the CLI with four -s on one card
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "tools/dryrun_multichip_torch.py", "--devices",
+                           ",".join(MESH_DEVICES)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    oks = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip(")]
+    print("  (e) " + " | ".join(oks) + f" (exit {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if proc.returncode != 0 or len(oks) != 3 or not all(" OK" in ln for ln in oks):
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        fail("(e) tools/dryrun_multichip_torch.py failed")
+    cli_cfg = os.path.join(OUT_DIR, "mesh_cli.json")
+    with open(cli_cfg, "w") as f:
+        json.dump(_merge(cfg_for(os.path.join(OUT_DIR, "mesh_cli.jsonl")),
+                         {"system": {"log_dir": os.path.join(OUT_DIR, "logs")},
+                          "parallel": {"num_streams": 1}}), f)
+    argv = ["-c", cli_cfg, "--max-frames", str(2 * T_MULTI)]
+    for path in files:
+        argv += ["-s", path]
+    proc, cli_launches, cli_s = _counted_subprocess("tools.run_pipeline_torch", argv)
+    ranks_line = [ln for ln in proc.stderr.splitlines() if "one rank each" in ln]
+    print(f"  (e) the CLI with {len(files)} -s on {torch.cuda.device_count() if DEVICE == 'cuda' else 0} "
+          f"card(s): exit {proc.returncode}, K1 launches in its process {cli_launches}, "
+          f"{'spawned ranks' if ranks_line else 'one process'} ({cli_s:.1f} s)", flush=True)
+    if ranks_line or cli_launches == 0 or "streams: 4" not in proc.stdout:
+        fail("(e) the CLI with four streams did not run them in its own process")
+    out["launches"]["multistream_mesh_cli"] = {"launches": cli_launches,
+                                               "frames": 2 * T_MULTI * len(files)}
+    print(json.dumps({"phase14": {k: v for k, v in out.items() if k != "launches"},
+                      "card": smi}), flush=True)
+    return out
+
+
 def _state_diffs(a, b, path: str = "") -> list[str]:
     """Paths where two checkpoint trees differ (tensors bit for bit, dtype
     included; ints and None by value)."""
@@ -3429,13 +3959,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
-    phase("1/13 card")
+    phase("1/14 card")
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    phase("2/13 build kernels (nvcc -> ctypes)")
+    phase("2/14 build kernels (nvcc -> ctypes)")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
@@ -3448,7 +3978,7 @@ def main() -> int:
                     if any(w in line for w in ("registers", "smem", "stack frame")):
                         print(f"  ptxas {log[:-4]}: {line.strip()}", flush=True)
 
-    phase(f"3/13 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
+    phase(f"3/14 NMS kernel vs plain version (B={K}, K={CANDIDATES}, then the kernel's edges)")
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
     nms_cases = [(name, K, CANDIDATES, 0.45) for name in (
@@ -3471,7 +4001,7 @@ def main() -> int:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
 
-    phase("4/13 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
+    phase("4/14 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     overrides5 = {
         "detection": {"model": "yolov8s", "input_size": SIZE, "num_classes": 8,
                       "weights": WEIGHTS},
@@ -3515,7 +4045,7 @@ def main() -> int:
         if err > MODEL_REL_TOL * scale:
             fail(f"bf16 {label} head differs from float32 by {err} (> {MODEL_REL_TOL} x {scale})")
 
-    phase(f"5/13 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
+    phase(f"5/14 slice: Pipeline.run_chunked, {N_CHUNKS} chunks of {K} 720p frames")
     pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
     pipe.reset()
     torch.cuda.synchronize()
@@ -3628,27 +4158,27 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
-    phase("6/13 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
+    phase("6/14 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
-    phase("7/13 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
+    phase("7/14 the other trackers and GMC: deepsort chunked, botsort per stage, ocsort "
           "packed, host LAPJV; oracle-detection comparison; dense scene")
     trackers = tracker_paths(smi, frames)
-    phase(f"8/13 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
+    phase(f"8/14 several streams: the native packer, MultiStreamPipeline.run at S = {S_STREAMS}, "
           "per-stream equality in float32, device time, deepsort + GMC, a degraded run")
     multi = multistream_paths(smi)
-    phase("9/13 serving: the web app over a socket, the default build, 8-way concurrency, "
+    phase("9/14 serving: the web app over a socket, the default build, 8-way concurrency, "
           "the MJPEG monitor, run_inference_torch")
     t9 = time.perf_counter()
     serving = serving_paths(smi, live["quality"])
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
-    phase("10/13 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
+    phase("10/14 kill-and-resume (chunked, per stage, a killed CLI, several streams), device "
           "zone masks, the x6 / x24 / bgr transports")
     t10 = time.perf_counter()
     resume = resume_paths(smi)
     max_err = max(max_err, float(resume["mismatches"]))
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
-    phase("11/13 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
+    phase("11/14 int8 (synthetic calibration chunked, the int8 GEMM against its int64 plain "
           "version, frozen QAT scales per stage, S = 2), the per-frame bgr loop, mqtt, .pt "
           "weights, int8 mAP")
     t11 = time.perf_counter()
@@ -3658,23 +4188,30 @@ def main() -> int:
     quant = int8_paths(smi, frames, bf16, serving["detect_eval"]["mAP_50"])
     max_err = max(max_err, float(quant["mismatches"]))
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
-    phase("12/13 device traces (profiling.trace_dir, trace_chunk_torch), model export (.pt2, "
+    phase("12/14 device traces (profiling.trace_dir, trace_chunk_torch), model export (.pt2, "
           "npz), benchmark / bench_latency / bench_dense, cold start")
     t12 = time.perf_counter()
     tools = tool_paths(smi, frames, {"overrides": overrides5, "chunk_dev_ms": chunk_dev_ms,
                                      "planes": planes, "meta": meta})
     max_err = max(max_err, float(tools["mismatches"]))
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
-    phase(f"13/13 YOLOv8s training at {SIZE} (B = 16, bf16, EMA) with validation through K1, "
+    phase(f"13/14 YOLOv8s training at {SIZE} (B = 16, bf16, EMA) with validation through K1, "
           "checkpoint and resume, QAT into int8, selftest_e2e_torch, train_embedder_torch")
     t13 = time.perf_counter()
     training = training_paths(smi)
     max_err = max(max_err, float(training["val"]["mismatches"]))
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
+    phase(f"14/14 several ranks: the data-parallel step on {len(MESH_DEVICES)} ranks of the card, "
+          "world 1 over NCCL, streams split over ranks, a killed two-rank run resumed, the dry "
+          "run and the CLI")
+    t14 = time.perf_counter()
+    meshes = mesh_paths(smi)
+    max_err = max(max_err, float(meshes["mismatches"]))
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                **live["launches"], **trackers["launches"], **multi["launches"],
                **serving["launches"], **resume["launches"], **quant["launches"],
-               **tools["launches"], **training["launches"]}
+               **tools["launches"], **training["launches"], **meshes["launches"]}
     launches = sum(r["launches"] for r in by_path.values())
     print(f"  K1 launches by run: {json.dumps(by_path)}; total {launches}", flush=True)
     print(f"  total smoke time {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -20,7 +20,12 @@ than torch's:
     ``max(E[x^2] - E[x]^2, 0)``, which is also the *biased* variance the
     running statistic takes (``BatchNorm2d`` would take the unbiased one);
   * running statistics ``ra = 0.97 * ra + 0.03 * batch``, eps 1e-3;
-  * the BN output and the SiLU in float32, then cast to the compute dtype.
+  * the BN output and the SiLU in float32, then cast to the compute dtype;
+  * inside ``global_batch_stats(model, world)`` (a rank of a data-parallel
+    step) the batch statistics are the global batch's, as XLA computes
+    them under ``jit`` over the sharded batch: each rank's ``(mean, mean of
+    squares)`` in one differentiable all-reduce per layer, over slices of
+    equal size.
 
 ``init_params`` is the reference's from-scratch init with flax's
 distributions (truncated-normal LeCun kernels, zero biases, identity BN);
@@ -29,12 +34,15 @@ the draws are torch's from an explicit generator, not flax's.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rtmodt_tpu_torch.parallel.mesh import all_reduce_sum
 
 # depth_multiple, width_multiple, ratio (last-stage channel ratio)
 YOLOV8_VARIANTS: dict[str, tuple[float, float, float]] = {
@@ -72,6 +80,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=fused)
         self.bn = None if fused else nn.BatchNorm2d(c_out, eps=BN_EPS)
+        self.sync_ranks = 0   # > 0: train-mode statistics over that many ranks' slices
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -90,8 +99,12 @@ class ConvBN(nn.Module):
             return F.silu(y)
         bn = self.bn
         yf = y.float()
-        mean = yf.mean(dim=(0, 2, 3))
-        var = torch.clamp((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        # (mean, mean of squares) as one tensor: one all-reduce per layer
+        stats = torch.stack([yf.mean(dim=(0, 2, 3)), (yf * yf).mean(dim=(0, 2, 3))])
+        if self.sync_ranks:
+            stats = all_reduce_sum(stats) / self.sync_ranks
+        mean = stats[0]
+        var = torch.clamp(stats[1] - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
@@ -118,6 +131,22 @@ class ConvBN(nn.Module):
         fused.weight.copy_(conv.weight.float() * factor[:, None, None, None])
         fused.bias.copy_(bn.bias.float() - bn.running_mean.float() * factor)
         self.conv, self.bn = fused, None
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module, world: int) -> Iterator[None]:
+    """Train-mode BatchNorm over the global batch of ``world`` ranks (each
+    holding an equal slice) while the block runs; ``world`` 0 leaves the
+    model as it is.  Every rank must run the same forward and backward: each
+    ConvBN makes one all-reduce on each."""
+    convs = [m for m in model.modules() if isinstance(m, ConvBN)]
+    for m in convs:
+        m.sync_ranks = world
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.sync_ranks = 0
 
 
 def conv_cast(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

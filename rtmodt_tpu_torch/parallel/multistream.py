@@ -1,10 +1,16 @@
-"""S camera streams on one card (port of ``rtmodt_tpu/parallel/multistream.py``).
+"""S camera streams over a mesh of cards (port of ``rtmodt_tpu/parallel/multistream.py``).
 
 The reference runs S streams as one SPMD program, the stream axis sharded
-over a TPU mesh.  The port runs them on one card as one batch: the detector
-forward runs once over all S (or T * S) frames of a call, NMS (the CUDA
-kernel K1) once over those frames, and the tracker T times in order, each
-update over all S streams at once.  Layouts:
+over a TPU mesh.  The port runs one process per card (``parallel/mesh.py``):
+rank r of N takes streams ``[r * S / N, (r + 1) * S / N)`` on its own card,
+with no collective on the device path (the streams are independent), and
+runs them as one batch: the detector forward once over all its S / N (or
+T * S / N) frames of a call, NMS (the CUDA kernel K1) once over those
+frames, and the tracker T times in order, each update over all its streams
+at once.  Without a mesh, inside a rank the default is the ranks' mesh when
+it divides S (this rank's card otherwise), and outside one it is this
+process's device.  Layouts (the inputs carry every stream, or this rank's;
+the outputs are this rank's streams):
 
   * ``step(frames (S, H, W, 3))``          - one BGR frame per stream;
   * ``step_chunk(frames (T, S, H, W, 3))`` - T frames per stream, BGR;
@@ -21,12 +27,18 @@ stream carries its own previous luma grid and validity flag (``ops/gmc.py``).
 
 ``run`` is the multi-camera loop: one reader + packer thread per stream,
 time-aligned (T, S) chunks with ``pipeline_depth`` chunks in flight, one
-``ZoneEventEngine`` per stream (its events carry ``{"stream": si}``), a
-degraded mode in which a stream that ends or dies is fed blank frames, and an
-optional mosaic of the annotated streams.  With ``state_path`` it writes
-kill-and-resume snapshots (``runtime/state_store.py``) and resumes from one:
-each FILE source drops the frames its stream already consumed.  Not ported:
-several cards (ROADMAP 8c).
+``ZoneEventEngine`` per stream (its events carry ``{"stream": si}``, the
+global index; every rank appends its streams' lines to the configured log,
+one whole line per write), a degraded mode in which a stream that ends or
+dies is fed blank frames, and an optional mosaic of the annotated streams
+(one rank only: it tiles every stream).  With ``state_path`` it writes
+kill-and-resume snapshots (``runtime/state_store.py``; rank 0 gathers every
+stream's state into the one file) and resumes from one: each FILE source
+drops the frames its stream already consumed.  Over several ranks the loop
+makes one host all-reduce of four integers per chunk (the chunk's real
+frames, and the resolution for a rank whose streams gave none yet), so
+that every rank runs until every stream has ended and snapshots at the same
+frames, as one process would; the summary is gathered to rank 0.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ from rtmodt_tpu_torch.ingestion.rtsp_reader import RTSPReader
 from rtmodt_tpu_torch.ops.gmc import init_carry
 from rtmodt_tpu_torch.ops.nms import NMSResult
 from rtmodt_tpu_torch.ops.yuv import content_dims, pack_chunk, pack_i420_planar
+from rtmodt_tpu_torch.parallel.mesh import (ENV_DEVICES, Mesh, create_mesh, gather_objects,
+                                            local_mesh, sum_ints)
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs, TrackState, init_track_state
 from rtmodt_tpu_torch.utils.logging import logger
@@ -153,13 +167,36 @@ def _split_ts(x: torch.Tensor, t: int, s: int) -> torch.Tensor:
     return x.reshape(t, s, *x.shape[1:])
 
 
+def stream_devices(num_streams: int, device: str = "cuda") -> list[str]:
+    """The cards S streams run on, one rank each: every visible card where
+    their count divides S, one card otherwise (the reference's default
+    mesh); the CPU is one device."""
+    from rtmodt_tpu_torch.device import resolve_device
+
+    if resolve_device(device).type == "cpu":
+        return ["cpu"]
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n if num_streams % n == 0 else 1)]
+
+
+def _default_mesh(num_streams: int) -> Mesh | None:
+    """Inside a rank: the ranks' mesh where it divides the streams, this
+    rank's own card otherwise.  Outside one: None (this process's device)."""
+    if os.environ.get(ENV_DEVICES) is None or not torch.distributed.is_initialized():
+        return None
+    mesh = create_mesh()
+    return mesh if num_streams % mesh.world == 0 else create_mesh(1)
+
+
 class MultiStreamPipeline:
-    """S streams as one batch on one device.  ``device`` wins over
+    """S streams; this process takes its rank's S / N of them as one batch
+    on its device.  ``mesh`` (``parallel/mesh.py``) places the streams; a
+    mesh that does not divide S raises.  Without one, ``device`` wins over
     ``system.device`` (the card by default; ``"cpu"`` runs on the CPU);
-    ``num_streams`` over ``parallel.num_streams``."""
+    ``num_streams`` wins over ``parallel.num_streams``."""
 
     def __init__(self, cfg: PipelineConfig, num_streams: int | None = None,
-                 device: str | None = None, seed: int = 0):
+                 device: str | None = None, seed: int = 0, mesh: Mesh | None = None):
         t = cfg.tracking
         if t.algorithm == "bytetrack" and t.bytetrack.assignment == "lapjv":
             raise ValueError("tracking.bytetrack.assignment=lapjv tracks one stream on the "
@@ -167,10 +204,23 @@ class MultiStreamPipeline:
                              "(assignment: greedy)")
         self.cfg = cfg
         self.num_streams = num_streams or cfg.parallel.num_streams
+        mesh = mesh or _default_mesh(self.num_streams)
+        if mesh is not None:
+            if self.num_streams % mesh.world:
+                raise ValueError(f"num_streams={self.num_streams} must be divisible by mesh "
+                                 f"size {mesh.world}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device}")
+            device = str(mesh.device)
         # the single-stream pipeline's detector, tracker facade and chunk
         # stages; the per-stream state lives here and is handed to it
         self._pipe = Pipeline(cfg, device=device, seed=seed)
         self.device = self._pipe.device
+        self.mesh = mesh or local_mesh(self.device)
+        # this rank's streams: [stream_offset, stream_offset + local_streams)
+        self.stream_slice = self.mesh.shard(self.num_streams)
+        self.local_streams = self.num_streams // self.mesh.world
+        self.stream_offset = self.stream_slice.start
         self.detector = self._pipe.detector
         self.tracker = self._pipe.tracker
         self._batched = self.tracker.algorithm == "bytetrack"
@@ -178,22 +228,25 @@ class MultiStreamPipeline:
         self._gmc_on = t.gmc.method == "phase"
         self.chunks_submitted = 0
         self.reset()
-        logger.info(f"multi-stream pipeline: {self.num_streams} streams on {self.device} "
+        where = (f"streams {self.stream_offset}-{self.stream_slice.stop - 1} of "
+                 f"{self.num_streams}, rank {self.mesh.rank} of {self.mesh.world}"
+                 if self.mesh.world > 1 else f"{self.num_streams} streams")
+        logger.info(f"multi-stream pipeline: {where} on {self.device} "
                     f"({self.tracker.algorithm}, "
                     f"{'batched' if self._batched else 'per-stream'} tracker)")
 
     def reset(self) -> None:
         """Fresh tracker state and GMC carry for every stream."""
         if self._batched:
-            self.state = init_multistream_state(self.num_streams, self.tracker.cfg.max_tracks,
-                                                device=self.device)
+            self.state = init_multistream_state(self.local_streams,
+                                                self.tracker.cfg.max_tracks, device=self.device)
         else:
-            self.state = [self.tracker._init_state() for _ in range(self.num_streams)]
+            self.state = [self.tracker._init_state() for _ in range(self.local_streams)]
         self._gmc_reset()
 
     def _gmc_reset(self) -> None:
         """Every stream's GMC carry back to a zero grid with valid = 0."""
-        s, dev, g = self.num_streams, self.device, self.cfg.tracking.gmc.grid
+        s, dev, g = self.local_streams, self.device, self.cfg.tracking.gmc.grid
         if self._batched:
             self._gmc_carry = init_carry(g, dev, s) if self._gmc_on else None
         else:
@@ -209,7 +262,7 @@ class MultiStreamPipeline:
         found = tuple(list(x) if isinstance(x, list) else x
                       for x in (self.state, self._gmc_carry))
         planes, _ = pack_chunk(np.zeros((1, h, w, 3), np.uint8), self.cfg.detection.input_size)
-        t, s = max(1, chunk_size), self.num_streams
+        t, s = max(1, chunk_size), self.local_streams
         self.submit_chunk_packed(tuple(np.ascontiguousarray(
             np.broadcast_to(p[:, None], (t, s, *p.shape[1:]))) for p in planes), h, w)
         if self.device.type == "cuda":
@@ -229,7 +282,7 @@ class MultiStreamPipeline:
             self.state, self._gmc_carry = pipe.tracker.state, pipe._gmc_carry
             return outs
         per = []
-        for si in range(self.num_streams):
+        for si in range(self.local_streams):
             pipe.tracker.state, pipe._gmc_carry = self.state[si], self._gmc_carry[si]
             per.append(pipe.track_chunk(NMSResult(*(x[:, si] for x in res)),
                                         None if feats is None else feats[:, si],
@@ -237,9 +290,16 @@ class MultiStreamPipeline:
             self.state[si], self._gmc_carry[si] = pipe.tracker.state, pipe._gmc_carry
         return TrackOutputs(*(torch.stack(f, dim=1) for f in zip(*per)))
 
-    def _check_streams(self, s: int) -> None:
+    def _local(self, x, s: int):
+        """This rank's streams of a (T, S, ...) input that carries every
+        stream or this rank's."""
+        if s == self.local_streams:
+            return x
         if s != self.num_streams:
-            raise ValueError(f"{s} streams in the input for a {self.num_streams}-stream pipeline")
+            raise ValueError(f"{s} streams in the input for a {self.num_streams}-stream pipeline"
+                             + (f" ({self.local_streams} on this rank)"
+                                if self.mesh.world > 1 else ""))
+        return x[:, self.stream_slice]
 
     # -- BGR frames ------------------------------------------------------------
     @torch.no_grad()
@@ -249,8 +309,8 @@ class MultiStreamPipeline:
         letterbox and the forward over the T * S frames at once, NMS once
         over them, then per frame GMC on the full-resolution frames and the
         tracker."""
+        frames = self._local(frames, frames.shape[1])
         t, s, h, w = frames.shape[:4]
-        self._check_streams(s)
         fdev = torch.as_tensor(frames).to(self.device).reshape(t * s, h, w, 3)
         res, feats = self._pipe.bgr_detect(fdev)
         res = NMSResult(*(_split_ts(x, t, s) for x in res))
@@ -262,7 +322,7 @@ class MultiStreamPipeline:
 
     def step(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
         """frames (S, H, W, 3) uint8 BGR -> (outputs, detections) with a
-        leading S axis."""
+        leading axis of this rank's streams."""
         outs, res = self.step_chunk(frames[None])
         return TrackOutputs(*(x[0] for x in outs)), NMSResult(*(x[0] for x in res))
 
@@ -279,12 +339,13 @@ class MultiStreamPipeline:
         over the T * S frames, then the tracker T times.  Returns the device
         (TrackOutputs, NMSResult), (T, S) leading."""
         if isinstance(planes, (np.ndarray, torch.Tensor)):
+            planes = self._local(planes, planes.shape[1])
             t, s = planes.shape[:2]
             flat = planes.reshape(t * s, *planes.shape[2:])
         else:
+            planes = tuple(self._local(p, planes[0].shape[1]) for p in planes)
             t, s = planes[0].shape[:2]
             flat = tuple(p.reshape(t * s, *p.shape[2:]) for p in planes)
-        self._check_streams(s)
         res, feats, grids, scale = self._pipe.packed_detect(flat, src_h, src_w)
         res = NMSResult(*(_split_ts(x, t, s) for x in res))
         outs = self._track(res, None if feats is None else _split_ts(feats, t, s),
@@ -306,7 +367,9 @@ class MultiStreamPipeline:
         continued; it is listed in ``dead_streams``.  Returns a summary:
         ``frames``, ``streams``, ``fps_aggregate``, ``fps_per_stream``,
         ``per_stream_frames``, ``dead_streams`` and, with events on,
-        ``zone_counts`` per stream.
+        ``zone_counts`` per stream.  Over several ranks every rank passes
+        all S ``sources`` and reads its own; rank 0 returns the summary of
+        every stream, the others None.
 
         ``state_path`` enables kill-and-resume snapshots: one after every
         ``state_interval`` frames of all streams (the window drained first)
@@ -316,9 +379,11 @@ class MultiStreamPipeline:
         current frame), ``per_stream_frames`` counts on from the snapshot's,
         and a stream that had ended stays dead and is fed blank frames, as it
         would be in an uninterrupted run."""
-        s_streams = self.num_streams
-        if len(sources) != s_streams:
-            raise ValueError(f"{len(sources)} sources for {s_streams} streams")
+        if len(sources) != self.num_streams:
+            raise ValueError(f"{len(sources)} sources for {self.num_streams} streams")
+        mesh, off = self.mesh, self.stream_offset
+        sources = list(sources[self.stream_slice])        # this rank's streams
+        s_streams = self.local_streams
         t_chunk = chunk_size or max(2, self.cfg.parallel.chunk_size)
         depth = max(0, self.cfg.parallel.pipeline_depth)
         icfg, ecfg, vcfg = self.cfg.ingestion, self.cfg.events, self.cfg.visualization
@@ -330,7 +395,7 @@ class MultiStreamPipeline:
             engines = [ZoneEventEngine.from_config(ecfg, trail_length=trail)
                        for _ in range(s_streams)]
             for si, eng in enumerate(engines):
-                eng.extra_metadata = {"stream": si}
+                eng.extra_metadata = {"stream": off + si}
         # kill-and-resume: restore the state before the ingest threads start,
         # so that each file source knows how many frames to drop
         resume = None
@@ -344,6 +409,10 @@ class MultiStreamPipeline:
         # the annotated mosaic (window, video file and/or MJPEG monitor) is
         # opt-in: the headless loop keeps no BGR frame on the host
         render_on = display or vcfg.save_video or vcfg.mjpeg_port is not None
+        if render_on and mesh.world > 1:
+            raise ValueError("the mosaic (display, visualization.save_video, mjpeg_port) tiles "
+                             f"every stream in one process; {mesh.world} ranks hold "
+                             f"{s_streams} streams each: run the mosaic on one card")
         annot = MosaicAnnotator(vcfg, names, s_streams) if render_on else None
         monitor = None
         if vcfg.mjpeg_port is not None:
@@ -465,7 +534,9 @@ class MultiStreamPipeline:
         last_meta = ([(int(f), float(t)) for f, t in resume["last_meta"]] if resume
                      else [(0, 0.0)] * s_streams)
         per_stream_frames = list(skip_frames)
-        last_snap = sum(per_stream_frames)
+        # every stream's frames (all ranks'): the snapshot interval counts them
+        all_frames = resume["total_frames"] if resume else 0
+        last_snap = all_frames
         aborted = False
 
         def drain() -> bool:
@@ -503,10 +574,22 @@ class MultiStreamPipeline:
                             break
                         block[si].append(item)
                 n_real = sum(len(b) for b in block)
-                if n_real == 0:   # every stream is done
+                # every rank runs until every stream is done, feeding its ended
+                # streams blanks meanwhile, as one process does; a rank whose
+                # streams gave no frame yet takes the others' resolution
+                own = src_hw or (next(b for b in block if b)[0][1] if n_real else None)
+                n_all, known, h_sum, w_sum = sum_ints(
+                    [n_real, own is not None, *(own or (0, 0))], mesh)
+                if n_all == 0:   # every stream is done
                     break
+                all_frames += n_all
+                hw = (h_sum // known, w_sum // known)
+                if own is not None and (tuple(own) != hw or hw[0] * known != h_sum
+                                        or hw[1] * known != w_sum):
+                    raise ValueError(f"streams of another rank have another resolution than "
+                                     f"{tuple(own)}; all streams must share one resolution")
                 if src_hw is None:
-                    src_hw = next(b for b in block if b)[0][1]
+                    src_hw = hw
                     ch, cw = content_dims(*src_hw, size)
                 # fresh buffers per block: an in-flight chunk may still be
                 # reading the previous ones
@@ -543,14 +626,14 @@ class MultiStreamPipeline:
                     inflight.clear()
                     aborted = True
                     break
-                if state_path and sum(per_stream_frames) - last_snap >= state_interval:
+                if state_path and all_frames - last_snap >= state_interval:
                     # drain first: the tracker state (updated at submit) and the
                     # engines (updated at consume) must describe the same frames
                     if not drain():
                         aborted = True
                         break
                     snapshot()
-                    last_snap = sum(per_stream_frames)
+                    last_snap = all_frames
             aborted = not drain() or aborted
             if state_path and not aborted and t_start is not None:
                 snapshot()   # the clean-exit snapshot covers the whole run
@@ -573,18 +656,28 @@ class MultiStreamPipeline:
 
                 cv2.destroyAllWindows()
         wall = (time.perf_counter() - t_start) if t_start else 0.0
-        fps = frames_done / wall if wall > 0 else 0.0
+        part = {"frames": frames_done, "wall": wall, "per_stream_frames": per_stream_frames,
+                "dead_streams": [off + si for si, d in enumerate(dead) if d],
+                "zone_counts": (None if engines is None
+                                else [eng.zone_counts() for eng in engines])}
+        parts = gather_objects(part, mesh)   # rank order is stream order
+        if parts is None:
+            return None
+        frames = sum(p["frames"] for p in parts)
+        wall = max(p["wall"] for p in parts)
+        fps = frames / wall if wall > 0 else 0.0
         summary = {
-            "frames": frames_done,
-            "streams": s_streams,
+            "frames": frames,
+            "streams": self.num_streams,
             "fps_aggregate": round(fps, 1),
-            "fps_per_stream": round(fps / s_streams, 1),
-            "per_stream_frames": per_stream_frames,
-            "dead_streams": [si for si, d in enumerate(dead) if d],
+            "fps_per_stream": round(fps / self.num_streams, 1),
+            "per_stream_frames": [n for p in parts for n in p["per_stream_frames"]],
+            "dead_streams": [si for p in parts for si in p["dead_streams"]],
         }
         if engines is not None:
-            summary["zone_counts"] = [eng.zone_counts() for eng in engines]
-        logger.info(f"multi-stream run: {frames_done} frames over {s_streams} streams, "
-                    f"{summary['fps_aggregate']} fps aggregate "
+            summary["zone_counts"] = [c for p in parts for c in p["zone_counts"]]
+        logger.info(f"multi-stream run: {frames} frames over {self.num_streams} streams"
+                    + (f" on {mesh.world} ranks" if mesh.world > 1 else "")
+                    + f", {summary['fps_aggregate']} fps aggregate "
                     f"({summary['fps_per_stream']}/stream)")
         return summary

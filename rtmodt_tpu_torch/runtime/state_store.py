@@ -18,6 +18,12 @@ sources continue from the current frame.  A snapshot written by either
 package loads into the other: the reference's single-stream snapshot has no
 GMC carry (the port then restarts GMC cold), and the reference ignores the
 port's.
+
+Over several ranks (``parallel/mesh.py``) the multi-stream snapshot is still
+one file in this format: rank 0 gathers every rank's streams (in rank order,
+which is stream order) and writes it; on resume every rank reads it and
+keeps its own streams, so a snapshot written by N ranks resumes under any
+rank count that divides the streams.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from rtmodt_tpu_torch.parallel.mesh import barrier, gather_objects
 from rtmodt_tpu_torch.utils.logging import logger
 
 _VERSION = 1
@@ -64,11 +71,14 @@ def _gmc_payload(carry) -> dict[str, np.ndarray]:
     return {"gmc/grids": grids.detach().cpu().numpy(), "gmc/valid": valid.detach().cpu().numpy()}
 
 
-def _load_gmc(z, carry, path: str):
-    """The snapshot's GMC carry on the device of ``carry``, or None (with a
-    warning) where the snapshot has none of that shape."""
+def _load_gmc(z, carry, path: str, streams: slice | None = None):
+    """The snapshot's GMC carry (its ``streams`` of a multi-stream one) on
+    the device of ``carry``, or None (with a warning) where the snapshot has
+    none of that shape."""
     if "gmc/grids" in z.files:
         grids, valid = z["gmc/grids"], z["gmc/valid"]
+        if streams is not None:
+            grids, valid = grids[streams], valid[streams]
         if grids.shape == tuple(carry[0].shape) and valid.shape == tuple(carry[1].shape):
             dev = carry[0].device
             return (torch.from_numpy(grids.astype(np.float32)).to(dev),
@@ -159,25 +169,40 @@ def save_multistream_snapshot(path: str, msp, engines=None, *, per_stream_frames
     stream that has ended keeps stamping its blank frames with; the
     reference ignores that key).  Call only at a drained window (every
     submitted chunk consumed), so the tracker and the engines describe the
-    same frames."""
+    same frames.  Over several ranks every rank calls it with its own
+    streams' lists (a collective: the ranks meet first, so that each
+    engine's ``log_offset`` counts every rank's lines); rank 0 writes."""
+    mesh = msp.mesh
+    barrier(mesh)
+    payload = {f"tracker/{k}": v.detach().cpu().numpy()
+               for k, v in _state_dict(msp.state).items()}
+    if msp._gmc_on:
+        payload.update(_gmc_payload(_carry_pair(msp._gmc_carry)))
+    part = {"per_stream_frames": [int(n) for n in per_stream_frames],
+            "last_meta": [[int(f), float(t)] for f, t in last_meta],
+            "dead": [bool(d) for d in dead],
+            "engines": [e.state_dict() for e in engines] if engines is not None else None,
+            "fps": None if fps is None else [float(f) for f in fps],
+            "payload": payload}
+    parts = gather_objects(part, mesh)
+    if parts is None:
+        return
     meta: dict[str, Any] = {
         "version": _VERSION,
         "kind": "multistream",
         "algorithm": msp.cfg.tracking.algorithm,
         "num_streams": int(msp.num_streams),
-        "per_stream_frames": [int(n) for n in per_stream_frames],
-        "last_meta": [[int(f), float(t)] for f, t in last_meta],
-        "dead": [bool(d) for d in dead],
-        "engines": [e.state_dict() for e in engines] if engines is not None else None,
+        "per_stream_frames": [n for p in parts for n in p["per_stream_frames"]],
+        "last_meta": [m for p in parts for m in p["last_meta"]],
+        "dead": [d for p in parts for d in p["dead"]],
+        "engines": (None if engines is None
+                    else [e for p in parts for e in p["engines"]]),
         "gmc": bool(msp._gmc_on),
     }
     if fps is not None:
-        meta["fps"] = [float(f) for f in fps]
-    payload = {f"tracker/{k}": v.detach().cpu().numpy()
-               for k, v in _state_dict(msp.state).items()}
-    if msp._gmc_on:
-        payload.update(_gmc_payload(_carry_pair(msp._gmc_carry)))
-    _write(path, meta, payload)
+        meta["fps"] = [f for p in parts for f in p["fps"]]
+    _write(path, meta, {k: np.concatenate([p["payload"][k] for p in parts])
+                        for k in payload})
 
 
 def load_multistream_snapshot(path: str, msp, engines=None) -> dict[str, Any]:
@@ -185,7 +210,9 @@ def load_multistream_snapshot(path: str, msp, engines=None) -> dict[str, Any]:
     ``engines``); returns the meta (``per_stream_frames`` drives each file
     source's fast-forward).  Refuses another version, a single-stream
     snapshot, another algorithm, another stream count or another slot layout
-    before changing anything."""
+    before changing anything.  Over several ranks it restores this rank's
+    streams, and the per-stream lists of the meta it returns are this
+    rank's; ``total_frames`` sums every stream's frames."""
     with np.load(path, allow_pickle=False) as z:
         meta = _read_meta(z, path)
         if meta.get("kind") != "multistream":
@@ -196,15 +223,18 @@ def load_multistream_snapshot(path: str, msp, engines=None) -> dict[str, Any]:
             raise ValueError(f"snapshot {path} holds {meta['num_streams']} streams; the "
                              f"running pipeline has {msp.num_streams}")
         if engines is not None and meta.get("engines") is not None \
-                and len(meta["engines"]) != len(engines):
+                and len(meta["engines"]) != msp.num_streams:
             raise ValueError(f"snapshot {path} holds {len(meta['engines'])} zone engines "
-                             f"for {len(engines)} streams")
+                             f"for {msp.num_streams} streams")
+        mine = msp.stream_slice
         cur = _state_dict(msp.state)
         fields = {}
         for k, t in cur.items():
             key = f"tracker/{k}"
             arr = z[key] if key in z.files else None
             want = (tuple(t.shape), t.cpu().numpy().dtype)
+            if arr is not None:     # every field leads with the stream axis
+                arr = arr[mine]
             if arr is None or (arr.shape, arr.dtype) != want:
                 got = "missing" if arr is None else f"{arr.shape}/{arr.dtype}"
                 raise ValueError(f"snapshot field {k!r} is {got}; the running pipeline "
@@ -214,18 +244,23 @@ def load_multistream_snapshot(path: str, msp, engines=None) -> dict[str, Any]:
         if isinstance(msp.state, list):
             cls = type(msp.state[0])
             msp.state = [cls(**{k: v[si] for k, v in fields.items()})
-                         for si in range(msp.num_streams)]
+                         for si in range(msp.local_streams)]
         else:
             msp.state = type(msp.state)(**fields)
         if msp._gmc_on:
-            carry = _load_gmc(z, _carry_pair(msp._gmc_carry), path)
+            carry = _load_gmc(z, _carry_pair(msp._gmc_carry), path, mine)
             if carry is None:
                 msp._gmc_reset()
             elif isinstance(msp._gmc_carry, list):
-                msp._gmc_carry = [(carry[0][si], carry[1][si]) for si in range(msp.num_streams)]
+                msp._gmc_carry = [(carry[0][si], carry[1][si])
+                                  for si in range(msp.local_streams)]
             else:
                 msp._gmc_carry = carry
     _warn_engine_mismatch(path, engines is not None, meta.get("engines") is not None)
+    meta["total_frames"] = sum(int(n) for n in meta["per_stream_frames"])
+    for key in ("per_stream_frames", "last_meta", "dead", "fps", "engines"):
+        if meta.get(key) is not None:
+            meta[key] = meta[key][mine]
     if engines is not None and meta.get("engines") is not None:
         for eng, st in zip(engines, meta["engines"]):
             eng.load_state_dict(st)

@@ -1,13 +1,20 @@
 """YOLOv8 detection loss: CIoU box + BCE cls + Distribution Focal Loss (port
 of ``rtmodt_tpu/training/loss.py``), over the static (B, A) anchor grid with
 the gains 7.5 / 0.5 / 1.5.  The assigner sees detached predictions; BCE is
-optax's log-sigmoid form."""
+optax's log-sigmoid form.
+
+In a rank of a data-parallel step (``distributed``) each rank's loss is its
+part of the global loss: its own sums over the global ``score_sum``, which
+is all-reduced (without a gradient) before the clamp, as the reference
+normalises over the whole sharded batch.  The parts summed over the ranks
+are the global loss."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 from rtmodt_tpu_torch.models.yolov8 import REG_MAX, decode_predictions
@@ -47,17 +54,21 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def yolo_loss(box_dist: torch.Tensor, cls_logits: torch.Tensor, gt_boxes: torch.Tensor,
               gt_labels: torch.Tensor, gt_mask: torch.Tensor, input_size: int,
-              box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5
-              ) -> LossBreakdown:
+              box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5,
+              distributed: bool = False) -> LossBreakdown:
     """``box_dist`` (B, A, 4*REG_MAX) and ``cls_logits`` (B, A, C) raw head
-    outputs; GT (B, M, ...) padded, xyxy in input pixels."""
+    outputs; GT (B, M, ...) padded, xyxy in input pixels.  ``distributed``:
+    normalise by the ``score_sum`` of every rank's batch slice."""
     b, a, _ = cls_logits.shape
     anchors, strides = _anchors(input_size, cls_logits.device)            # (A, 2), (A, 1)
     pred_boxes, pred_scores = decode_predictions(box_dist, cls_logits, input_size)
 
     res = assign(pred_scores.detach(), pred_boxes.detach(), anchors,
                  gt_boxes, gt_labels, gt_mask)
-    score_sum = torch.clamp(res.target_scores.sum(), min=1.0)
+    score_sum = res.target_scores.sum().detach()
+    if distributed:
+        tdist.all_reduce(score_sum, op=tdist.ReduceOp.SUM)
+    score_sum = torch.clamp(score_sum, min=1.0)
 
     # cls: BCE against soft targets over all anchors
     cls_l = sigmoid_bce(cls_logits.float(), res.target_scores).sum() / score_sum

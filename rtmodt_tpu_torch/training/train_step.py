@@ -17,7 +17,17 @@ out, because torch's own pieces differ from it:
   * no loss scaling under bf16, as in the reference.
 
 Parameters live in the model (``TrainState.model``); the step updates them
-in place.  Data-parallel training over several cards is not here.
+in place.
+
+``make_sharded_train_step`` is the data-parallel step over a mesh
+(``parallel/mesh.py``; the reference's ``jit`` with the batch sharded on
+``data`` and the state replicated), run in every rank of ``mesh.spawn``:
+each rank takes its slice of the global batch, the BatchNorm statistics and
+the loss's ``score_sum`` are the global batch's, and the gradients of the
+rank parts of the loss are all-reduced with SUM (the global loss is the sum
+of the parts; DDP's mean would be off by N) in one flat bucket that also
+carries the metrics.  Clipping by the global norm and AdamW then run
+identically on every rank, so the parameters stay bit-identical.
 """
 
 from __future__ import annotations
@@ -30,6 +40,10 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
+from rtmodt_tpu_torch.models.yolov8 import global_batch_stats
+from rtmodt_tpu_torch.parallel.mesh import Mesh, shard_batch
 from rtmodt_tpu_torch.training.loss import yolo_loss
 
 Schedule = Callable[[int], float]
@@ -221,20 +235,79 @@ def to_model_input(images: torch.Tensor) -> torch.Tensor:
 
 
 def train_step(state: TrainState, batch: Batch, *, tx: AdamW, input_size: int,
-               box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5
-               ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+               box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5,
+               mesh: Mesh | None = None) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One forward + loss + backward + update on the model's device.  The
-    metrics stay on the device (read them when logging)."""
+    metrics stay on the device (read them when logging).  With a
+    distributed ``mesh``, ``batch`` is this rank's slice of the global batch
+    and the step is the data-parallel one (``make_sharded_train_step``); the
+    metrics are then the global batch's."""
+    sync = mesh is not None and mesh.distributed
     model = state.model
     model.train()
-    box_dist, cls_logits = model(to_model_input(batch.images))
-    lb = yolo_loss(box_dist, cls_logits, batch.gt_boxes, batch.gt_labels, batch.gt_mask,
-                   input_size, box_gain, cls_gain, dfl_gain)
     params = state.params()
-    grads = dict(zip(params, torch.autograd.grad(lb.total, list(params.values()))))
-    g_norm, lr = tx.update(grads, state.opt_state, params)
+    with global_batch_stats(model, mesh.world if sync else 0):
+        box_dist, cls_logits = model(to_model_input(batch.images))
+        lb = yolo_loss(box_dist, cls_logits, batch.gt_boxes, batch.gt_labels, batch.gt_mask,
+                       input_size, box_gain, cls_gain, dfl_gain, distributed=sync)
+        grads = torch.autograd.grad(lb.total, list(params.values()))
+    parts = (lb.total.detach(), lb.box.detach(), lb.cls.detach(), lb.dfl.detach(), lb.num_fg)
+    if sync:
+        grads, parts = _all_reduce_bucket(grads, parts)
+    g_norm, lr = tx.update(dict(zip(params, grads)), state.opt_state, params)
     state.step += 1
-    metrics = {"loss": lb.total.detach(), "box_loss": lb.box.detach(),
-               "cls_loss": lb.cls.detach(), "dfl_loss": lb.dfl.detach(),
-               "num_fg": lb.num_fg, "grad_norm": g_norm, "lr": lr}
+    metrics = {"loss": parts[0], "box_loss": parts[1], "cls_loss": parts[2],
+               "dfl_loss": parts[3], "num_fg": parts[4], "grad_norm": g_norm, "lr": lr}
     return state, metrics
+
+
+_ALIGN = 128   # bucket offsets in elements: 512 bytes, as a fresh allocation is aligned
+
+
+def _all_reduce_bucket(grads: tuple[torch.Tensor, ...], parts: tuple[torch.Tensor, ...]
+                       ) -> tuple[list[torch.Tensor], tuple[torch.Tensor, ...]]:
+    """SUM the gradients and the metric parts (loss, box, cls, dfl, num_fg)
+    over the ranks in one flat float32 all-reduce; returns views of it.
+    Each view has its gradient's strides (a channels_last conv kernel's
+    gradient stays channels_last) and starts where a fresh tensor would be
+    aligned: the global norm's sums follow the memory order and split their
+    work by the address, so they round as on the plain step's gradients."""
+    offsets, at = [], 0
+    for g in grads:
+        offsets.append(at)
+        at += -(-g.numel() // _ALIGN) * _ALIGN
+    flat = torch.zeros(at + len(parts), dtype=torch.float32, device=grads[0].device)
+    out = []
+    for g, o in zip(grads, offsets):
+        dense = g.is_contiguous() or (g.dim() == 4 and g.is_contiguous(
+            memory_format=torch.channels_last))
+        v = (flat.as_strided(g.shape, g.stride(), o) if dense
+             else flat[o:o + g.numel()].view(g.shape))
+        v.copy_(g)
+        out.append(v)
+    flat[at:] = torch.stack([p.float() for p in parts])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    red = flat[at:]
+    return out, (red[0], red[1], red[2], red[3], red[4].to(parts[4].dtype))
+
+
+def make_sharded_train_step(model: nn.Module, tx: AdamW, input_size: int, mesh: Mesh,
+                            **gains) -> tuple[Callable, Callable]:
+    """The data-parallel step over ``mesh`` (the reference's contract:
+    ``(step_fn, put_batch)``).  ``put_batch(global_batch)`` is this rank's
+    slice on its device (a batch the mesh does not divide raises);
+    ``step_fn(state, slice) -> (state, metrics)``.  ``model`` is the one in
+    the ``TrainState`` the step is given.  A mesh of several devices runs in
+    the ranks of ``mesh.spawn``; a one-process mesh is the plain step."""
+    if mesh.world > 1 and not mesh.distributed:
+        raise RuntimeError(f"a mesh of {mesh.world} devices trains in {mesh.world} ranks: "
+                           "build the step inside the target of parallel.mesh.spawn")
+    del model   # the step's model is the state's, as the reference's is its params'
+
+    def step_fn(state: TrainState, batch: Batch) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        return train_step(state, batch, tx=tx, input_size=input_size, mesh=mesh, **gains)
+
+    def put_batch(batch: Batch) -> Batch:
+        return shard_batch(Batch(*(torch.as_tensor(x) for x in batch)), mesh)
+
+    return step_fn, put_batch

@@ -18,8 +18,15 @@ quantization-aware fine-tune that writes ``qat_final.npz`` and
   * The port's checkpoints also hold the EMA parameters, so a resumed run
     continues the same average (the reference restarts it from the restored
     parameters).
-  * One card: ``parallel.num_devices`` above 1 is refused; data-parallel
-    training is not ported yet.
+  * Several cards: ``parallel.num_devices`` means what it means to
+    ``tools/train.py`` (absent or 0: every card).  ``train`` starts one
+    rank per card (``parallel/mesh.py``); each holds a ``Trainer`` with the
+    rank's mesh and runs the data-parallel step (``make_sharded_train_step``)
+    on its slice of the global batch.  Rank 0 alone runs the loader (the
+    reference's one sequential random stream) and broadcasts each global
+    batch on the device; it alone keeps the EMA, validates, checkpoints and
+    writes ``ema_final.npz`` while the others wait.  One card is the
+    single-card path, with no process group.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from rtmodt_tpu_torch.parallel.mesh import (Mesh, barrier, broadcast_object, create_mesh,
+                                            local_mesh, replicate, spawn)
 from rtmodt_tpu_torch.utils.logging import logger
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -75,14 +84,51 @@ def ema_update(ema: dict[str, torch.Tensor], params: dict[str, torch.Tensor], d:
         e.copy_(float(d32) * e + one_minus * params[k].detach())
 
 
+def train_devices(cfg: dict, device: str = "cuda") -> list[str]:
+    """The devices ``parallel.num_devices`` asks for: on the card, that many
+    of the visible cards (absent or 0: all; at most all, as
+    ``tools/train.py``); on the CPU that many CPU ranks (default one)."""
+    from rtmodt_tpu_torch.device import resolve_device
+
+    n = int((cfg.get("parallel") or {}).get("num_devices") or 0)
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * max(1, n)
+    count = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(min(n or count, count))]
+
+
+def train(cfg: dict, device: str = "cuda", weights: str | None = None,
+          max_steps: int | None = None, qat_steps: int = 0,
+          compare_raw: bool = False) -> dict[str, Any]:
+    """Train ``cfg`` on the devices of ``train_devices``: one card in this
+    process, several in one rank each.  ``qat_steps`` > 0 then runs the
+    quantization-aware fine-tune (on rank 0).  Returns ``fit``'s summary
+    (rank 0's), with ``qat`` holding the QAT files."""
+    devices = train_devices(cfg, device)
+    if len(devices) == 1:
+        return _train_on(None, cfg, device, weights, max_steps, qat_steps, compare_raw)
+    return spawn(_train_on, create_mesh(devices=devices), cfg, device, weights, max_steps,
+                 qat_steps, compare_raw)[0]
+
+
+def _train_on(mesh: Mesh | None, cfg: dict, device: str, weights: str | None,
+              max_steps: int | None, qat_steps: int, compare_raw: bool) -> dict[str, Any]:
+    trainer = Trainer(cfg, device, weights, mesh=mesh)
+    out = trainer.fit(max_steps, compare_raw=compare_raw)
+    if qat_steps > 0 and trainer.lead:
+        out["qat"] = trainer.qat(qat_steps)
+    return out
+
+
 class Trainer:
-    """One training run of a config on ``device``.  ``weights`` (a reference
-    ``.npz``, BN unfused) starts the model from trained weights; without it
-    the model gets the from-scratch init (seed 0).  A resumed run
-    (``checkpoint.resume``) restores the latest checkpoint over either."""
+    """One training run of a config on ``device``, or in one rank of
+    ``mesh`` (its device).  ``weights`` (a reference ``.npz``, BN unfused)
+    starts the model from trained weights; without it the model gets the
+    from-scratch init (seed 0).  A resumed run (``checkpoint.resume``)
+    restores the latest checkpoint over either."""
 
     def __init__(self, cfg: dict, device: str | torch.device = "cuda",
-                 weights: str | None = None):
+                 weights: str | None = None, mesh: Mesh | None = None):
         from rtmodt_tpu_torch.device import resolve_device
         from rtmodt_tpu_torch.models.weights import load_npz
         from rtmodt_tpu_torch.models.yolov8 import build_model
@@ -92,14 +138,17 @@ class Trainer:
                                                           make_optimizer, make_schedule)
 
         n_dev = int((cfg.get("parallel") or {}).get("num_devices") or 0)
-        if n_dev > 1:
-            raise ValueError(f"parallel.num_devices: {n_dev}: the port trains on one card; "
-                             "data-parallel training over several cards is not ported yet "
-                             "(ROADMAP item 8c). Set it to 0 or 1.")
+        if mesh is None and n_dev > 1:
+            raise ValueError(f"parallel.num_devices: {n_dev} trains in {n_dev} ranks, one per "
+                             "card: start them with trainer.train (tools/train_torch.py), "
+                             "or pass each rank's mesh")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.mesh = mesh or local_mesh(self.device)
+        self.lead = self.mesh.rank == 0     # the loader, EMA, validation and checkpoints
         self.size = int(cfg["input_size"])
         self.batch_size = int(cfg["batch_size"])
+        self.mesh.shard(self.batch_size)    # a global batch the mesh does not divide raises
         dtype = torch.bfloat16 if cfg.get("precision", "bf16") == "bf16" else torch.float32
         self.model = build_model(cfg["model"], cfg["num_classes"], dtype=dtype).to(self.device)
         if self.device.type == "cuda":
@@ -119,31 +168,60 @@ class Trainer:
                                         init_variables=load_npz(weights) if weights else None)
         self.ema_decay = float(cfg.get("ema_decay", 0.0))
         self.ema = ({k: p.detach().clone() for k, p in self.state.params().items()}
-                    if self.ema_decay else None)
+                    if self.ema_decay and self.lead else None)
         self.ckpt = CheckpointManager(cfg["checkpoint"]["dir"])
         if cfg["checkpoint"].get("resume") and self.ckpt.latest_step is not None:
             ema = load_train_state(self.state, self.ckpt.restore())
             if self.ema is not None and ema is not None:
                 self.ema = ema
             logger.info(f"resumed from step {self.state.step}")
+        replicate(self.model, self.mesh)
         self._eval_model: torch.nn.Module | None = None
-        logger.info(f"training {cfg['model']} on {self.device}, {self.steps_per_epoch} "
+        where = (f"rank {self.mesh.rank} of {self.mesh.world} ({self.device})"
+                 if self.mesh.world > 1 else str(self.device))
+        logger.info(f"training {cfg['model']} on {where}, {self.steps_per_epoch} "
                     f"steps/epoch x {cfg['epochs']} epochs")
 
     # -- one step ----------------------------------------------------------
     def step(self, batch) -> dict[str, Any]:
         """One train step on a host ``Batch`` (moved to the card here) and
-        the EMA update."""
+        the EMA update.  Over several ranks ``batch`` is rank 0's global
+        batch (None on the others): it is broadcast and each rank steps on
+        its slice."""
         from rtmodt_tpu_torch.training.train_step import train_step
 
         loss = self.cfg["loss"]
         t = self.state.step
-        _, metrics = train_step(self.state, batch.to(self.device), tx=self.tx,
+        batch = self._share(batch) if self.mesh.distributed else batch.to(self.device)
+        _, metrics = train_step(self.state, batch, tx=self.tx,
                                 input_size=self.size, box_gain=loss["box"],
-                                cls_gain=loss["cls"], dfl_gain=loss["dfl"])
+                                cls_gain=loss["cls"], dfl_gain=loss["dfl"], mesh=self.mesh)
         if self.ema is not None:
             ema_update(self.ema, self.state.params(), ema_decay_at(self.ema_decay, t))
         return metrics
+
+    def _share(self, batch):
+        """Rank 0's global batch on every rank's device (two broadcasts:
+        the uint8 images, and boxes, labels and mask as one float32 tensor),
+        then this rank's slice."""
+        import torch.distributed as dist
+
+        from rtmodt_tpu_torch.training.train_step import Batch
+
+        b, s, m = self.batch_size, self.size, int(self.cfg["data"]["max_boxes"])
+        if self.lead:
+            images = batch.images.to(self.device, non_blocking=True)
+            gt = torch.cat([batch.gt_boxes.float(), batch.gt_labels[..., None].float(),
+                            batch.gt_mask[..., None].float()], dim=-1).to(self.device)
+        else:
+            images = torch.empty((b, s, s, 3), dtype=torch.uint8, device=self.device)
+            gt = torch.empty((b, m, 6), dtype=torch.float32, device=self.device)
+        dist.broadcast(images, 0)
+        dist.broadcast(gt, 0)
+        rows = self.mesh.shard(b)
+        gt = gt[rows]
+        return Batch(images[rows], gt[..., :4].contiguous(), gt[..., 4].to(torch.int32),
+                     gt[..., 5] > 0.5)
 
     # -- validation --------------------------------------------------------
     def eval_model(self, raw: bool = False) -> torch.nn.Module:
@@ -253,11 +331,11 @@ class Trainer:
                 events.clear()
 
         t0 = time.perf_counter()
-        batches = self.dataset.batches(self.batch_size, pin=cuda)
+        batches = self.dataset.batches(self.batch_size, pin=cuda) if self.lead else None
         try:
             while True:
                 tw = time.perf_counter()
-                batch = next(batches)
+                batch = next(batches) if batches is not None else None
                 wait_ms = (time.perf_counter() - tw) * 1e3
                 waits.append(wait_ms)
                 if cuda:
@@ -274,7 +352,7 @@ class Trainer:
                 gstep = self.state.step
                 if on_step is not None:
                     on_step(gstep, {**metrics, "wait_ms": wait_ms})
-                if gstep % 50 == 0:
+                if gstep % 50 == 0 and self.lead:
                     read_events()
                     m = {k: float(v) for k, v in metrics.items()}
                     rate = self.batch_size * 50 / (time.perf_counter() - t0)
@@ -284,7 +362,8 @@ class Trainer:
                                 f"dfl={m['dfl_loss']:.3f} fg={int(m['num_fg'])} "
                                 f"{rate:.1f} img/s")
                 if gstep % val_every == 0:
-                    r = self.validate()
+                    stop = False
+                    r = self.validate() if self.lead else None
                     if compare_raw and self.ema is not None and r is not None:
                         raw = self.validate(raw=True)
                         logger.info(f"val @ step {gstep}: EMA mAP50={r['mAP_50']:.4f} vs raw "
@@ -299,9 +378,13 @@ class Trainer:
                         self.save({"map50": r["mAP_50"]})
                         if patience and no_improve >= patience:
                             logger.info(f"early stop: no val improvement for {patience} evals")
-                            break
+                            stop = True
+                    if broadcast_object(stop, self.mesh):   # the other ranks wait here
+                        break
                 elif gstep % save_every == 0:
-                    self.save()
+                    if self.lead:
+                        self.save()
+                    barrier(self.mesh)
                 if max_steps and gstep >= max_steps:
                     logger.info("max-steps reached")
                     break
@@ -310,10 +393,14 @@ class Trainer:
         except KeyboardInterrupt:
             logger.info("interrupted")
         finally:
-            batches.close()
+            if batches is not None:
+                batches.close()
         read_events()
-        self.save()
-        ema_path = self.save_ema_final() if self.ema is not None else None
+        ema_path = None
+        if self.lead:
+            self.save()
+            ema_path = self.save_ema_final() if self.ema is not None else None
+        barrier(self.mesh)
         self.ckpt.close()
         logger.info(f"training done at step {self.state.step} (best mAP50={best_map:.4f})")
         return {"step": self.state.step, "best_map50": best_map, "vals": vals,

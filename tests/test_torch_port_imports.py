@@ -34,6 +34,7 @@ importlib.import_module("tools.verify_parity_torch")
 for tool in ("trace_chunk", "benchmark", "bench_latency", "bench_dense", "export_model",
              "make_dataset", "train", "train_embedder", "selftest_e2e"):
     importlib.import_module(f"tools.{tool}_torch")
+importlib.import_module("tools.dryrun_multichip_torch")
 importlib.import_module("start_torch")
 from rtmodt_tpu_torch.config import load_config
 load_config()
@@ -85,7 +86,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "rtmodt_tpu_torch.training.assigner", "rtmodt_tpu_torch.training.loss",
                 "rtmodt_tpu_torch.training.train_step", "rtmodt_tpu_torch.training.data",
                 "rtmodt_tpu_torch.training.checkpoint", "rtmodt_tpu_torch.training.synth_data",
-                "rtmodt_tpu_torch.training.trainer"):
+                "rtmodt_tpu_torch.training.trainer", "rtmodt_tpu_torch.parallel.mesh",
+                "rtmodt_tpu_torch.parallel.ranks"):
         assert mod in out["modules"]
     assert len(out["weights_fns"]) == 6        # the .pt route and save_npz, in the port
 

@@ -104,3 +104,30 @@ def test_nms_kernel_rejects_what_it_does_not_take(cuda_device):
     flat = torch.cat([torch.zeros(1), boxes.flatten()]).to(cuda_device)
     with pytest.raises(ValueError):                  # float4 loads need 16-byte alignment
         nms_kernel.greedy_suppress(flat[1:].view(1, 300, 4), scores.to(cuda_device), 0.45)
+
+
+@pytest.mark.cuda
+def test_nccl_world_1_sharded_step_is_the_plain_step(cuda_device):
+    """One rank over NCCL: its all-reduces are the identity, so the
+    data-parallel step gives the plain step's parameters, BN statistics and
+    metrics bit for bit (yolov8n, 64 px, B = 2, float32, two AdamW steps)."""
+    from rtmodt_tpu_torch.models.yolov8 import build_model, init_params
+    from rtmodt_tpu_torch.parallel import mesh as M
+    from rtmodt_tpu_torch.parallel.ranks import plain_vs_sharded
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+                np.tile(np.asarray([[[8, 8, 40, 40], [20, 20, 60, 60]]], np.float32), (2, 1, 1)),
+                np.zeros((2, 2), np.int32), np.ones((2, 2), bool)) for _ in range(2)]
+    model = init_params(build_model("yolov8n", 4), torch.Generator().manual_seed(0))
+    spec = {"model": "yolov8n", "num_classes": 4, "input_size": 64,
+            "state": model.state_dict(), "batches": batches,
+            "optimizer": {"lr0": 1e-3, "lrf": 0.01, "total": 8, "warmup": 1}}
+    mesh = M.create_mesh(devices=["cuda:0"])
+    assert mesh.backend == "nccl"
+    out = M.spawn(plain_vs_sharded, mesh, spec, timeout=300)[0]
+    assert out["backend"] == "nccl"
+    assert out["gap_repeat"] == 0.0, "the plain step does not repeat bit for bit"
+    assert out["gap_sharded"] == 0.0
+    assert out["metrics"]["sharded"] == out["metrics"]["plain"]
+

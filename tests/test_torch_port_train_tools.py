@@ -194,5 +194,6 @@ def test_several_cards_are_refused(tmp_path):
 
     cfg = load_train_config(_config(tmp_path, str(tmp_path / "none"),
                                     parallel={"num_devices": 2}))
-    with pytest.raises(ValueError, match="item 8c"):
+    # one Trainer is one rank: several cards need their ranks (trainer.train)
+    with pytest.raises(ValueError, match="trains in 2 ranks"):
         Trainer(cfg, "cpu")

@@ -8,9 +8,14 @@ The port's counterpart of ``tools/run_pipeline.py``, with the same flags:
 ``Pipeline.run`` on the device that ``system.device`` names (``cpu``, or
 ``cuda``/``tpu`` for the card) and prints the final profile and the zone
 counts.  Several ``-s`` set ``parallel.num_streams`` and run
-``MultiStreamPipeline.run`` over the sources (one card; ``--display`` and
-``--save-video`` tile the annotated streams into one mosaic), which prints
-the multi-camera summary.  ``--mjpeg-port N`` serves the annotated frames
+``MultiStreamPipeline.run`` over the sources, which prints the multi-camera
+summary: on several visible cards whose count divides the streams, one rank
+per card (``parallel/mesh.py``'s ``spawn``), each running its share of the
+streams, as the reference's CLI shards them over its devices; on one card
+(or the CPU) in this process.  ``--display``, ``--save-video`` and
+``--mjpeg-port`` tile every annotated stream into one mosaic, which one
+process draws: over several cards they are refused (restrict the cards with
+``CUDA_VISIBLE_DEVICES``).  ``--mjpeg-port N`` serves the annotated frames
 (the mosaic with several ``-s``) as MJPEG on port N while the run lasts
 (``http://host:N/``; 0 picks a free port, which the log names).
 ``--resume-state PATH`` keeps a kill-and-resume snapshot at PATH, rewritten
@@ -85,10 +90,16 @@ def main(argv: list[str] | None = None) -> int:
     log_file.setFormatter(logging.Formatter("%(asctime)s | %(levelname)-8s | %(message)s"))
     logger.addHandler(log_file)
 
-    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline
+    from rtmodt_tpu_torch.device import config_device
+    from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline, stream_devices
     from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 
     try:
+        devices = (stream_devices(len(args.source), config_device(cfg.system.device))
+                   if len(args.source) > 1 else [])
+        if len(devices) > 1:
+            summary = _run_ranks(cfg, args, devices)
+            return _print_summary(summary)
         pipe = MultiStreamPipeline(cfg) if len(args.source) > 1 else Pipeline(cfg)
     except RuntimeError as e:     # asked for the card where there is none
         raise SystemExit(f"run_pipeline_torch: {e}")
@@ -105,6 +116,28 @@ def main(argv: list[str] | None = None) -> int:
         if pipe.events is not None and summary is not None:
             summary = dict(summary)
             summary["zone_counts"] = pipe.events.zone_counts()
+    return _print_summary(summary)
+
+
+def _run_ranks(cfg, args: argparse.Namespace, devices: list[str]) -> dict:
+    """The multi-camera run over one rank per card; rank 0's summary."""
+    from rtmodt_tpu_torch.parallel.mesh import create_mesh, spawn
+    from rtmodt_tpu_torch.parallel.ranks import multistream_run
+
+    vcfg = cfg.visualization
+    if args.display or vcfg.save_video or vcfg.mjpeg_port is not None:
+        raise SystemExit(f"run_pipeline_torch: the mosaic (--display, --save-video, "
+                         f"--mjpeg-port) is drawn by one process; {len(args.source)} streams "
+                         f"run over {len(devices)} cards here: choose one card with "
+                         "CUDA_VISIBLE_DEVICES")
+    logger.info(f"{len(args.source)} streams over {len(devices)} cards, one rank each")
+    out = spawn(multistream_run, create_mesh(devices=devices), cfg, list(args.source),
+                {"max_frames": args.max_frames, "state_path": args.state_path,
+                 "state_interval": args.state_interval})
+    return out[0]["summary"]
+
+
+def _print_summary(summary: dict | None) -> int:
     if summary:
         print("\n=== final profile ===")
         for k, v in sorted(summary.items()):

@@ -9,7 +9,9 @@ fine-tunes through int8 rounding (``qat_final.npz`` + ``qat_act_scales.npz``
 for ``detection.quant: int8`` with ``quant_scales``).  Besides the
 reference's flags: ``--weights`` starts from a reference ``.npz`` (BN
 unfused) instead of the from-scratch init, and ``--device cpu`` runs on
-the CPU; the card is the default.
+the CPU; the card is the default.  ``parallel.num_devices`` in the YAML
+(absent or 0: every card) trains data-parallel over that many cards, one
+rank each (with ``--device cpu``, that many CPU ranks over gloo).
 
     python tools/train_torch.py -c rtmodt_tpu_torch/config/training_rich640d.yaml --max-steps 100
     python tools/train_torch.py -c tiny.yaml --max-steps 2 --device cpu
@@ -46,18 +48,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from rtmodt_tpu_torch.training.trainer import Trainer, load_train_config
+    from rtmodt_tpu_torch.training.trainer import load_train_config, train
 
     a = parse_args(argv)
     cfg = load_train_config(a.config_path, a.epochs, a.batch_size, a.imgsz, a.data_root,
                             a.resume)
     try:
-        trainer = Trainer(cfg, a.device, weights=a.weights)
+        train(cfg, a.device, weights=a.weights, max_steps=a.max_steps, qat_steps=a.qat_steps,
+              compare_raw=a.compare_raw)
     except (RuntimeError, ValueError, FileNotFoundError) as e:
         raise SystemExit(f"train_torch: {e}")
-    trainer.fit(a.max_steps, compare_raw=a.compare_raw)
-    if a.qat_steps > 0:
-        trainer.qat(a.qat_steps)
     return 0
 
 
