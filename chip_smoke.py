@@ -25,6 +25,9 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      against its plain version and its bound, also on inputs that change
      one part of its work (no valid, all valid, one frame, K = 1024), and
      the NMS stage's device time split into decode and suppress-and-pack;
+     then ``Pipeline.submit_chunk_packed`` on the first chunk's BGR frames:
+     its planes equal ``pack_chunk``'s, its outputs ``submit_packed_yuv``'s
+     bit for bit, K1 once and bit-equal to its plain version on the chunk;
   6. the live per-frame paths: ``Pipeline.run`` on a 25-fps 720p file (a)
      per stage, with the renderer and the annotated video saved, and (b) on
      the packed per-frame path with 2 frames in flight: K1's launches, the
@@ -32,7 +35,8 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      saved video's frame count; K1 at B = 1 on both paths' real inputs
      against its plain version, and its time and bound there; (c) the CLI
      ``tools/run_pipeline_torch.py`` as a subprocess on a 25-fps file with
-     botsort and GMC, whose events must carry 25-fps stream time; (d) IDF1 /
+     botsort and GMC, whose events must carry 25-fps stream time and whose
+     ``<log_dir>/pipeline.log`` must hold DEBUG lines; (d) IDF1 /
      MOTA / ID switches of the per-stage path on the dense 64-object scene,
      seed 5;
   7. the other trackers and camera-motion compensation, with the shipped
@@ -606,8 +610,7 @@ def live_paths(smi: str) -> dict:
     write_synthetic_video(cli_clip, frames=CLI_FRAMES, h=H, w=W, n_objects=N_OBJECTS,
                           fps=LIVE_FPS, seed=3)
     cli_log = os.path.join(OUT_DIR, "events_cli.jsonl")
-    if os.path.exists(cli_log):
-        os.remove(cli_log)
+    _fresh(cli_log, os.path.join(OUT_DIR, "logs", "pipeline.log"))
     cli_cfg = _merge(base, {
         "system": {"log_dir": os.path.join(OUT_DIR, "logs")},
         "tracking": {"algorithm": "botsort", "gmc": {"method": "phase"}},
@@ -629,6 +632,18 @@ def live_paths(smi: str) -> dict:
     if proc.returncode != 0:
         print(proc.stderr[-3000:], file=sys.stderr)
         fail(f"the CLI exited {proc.returncode}")
+    pipeline_log = os.path.join(cli_cfg["system"]["log_dir"], "pipeline.log")
+    debug_lines = n_lines = 0
+    if os.path.exists(pipeline_log):
+        with open(pipeline_log) as f:
+            for line in f:
+                n_lines += 1
+                debug_lines += " | DEBUG    | " in line
+    print(f"  CLI {os.path.relpath(pipeline_log, ROOT)}: "
+          + (f"{n_lines} lines, {debug_lines} at DEBUG" if n_lines else "missing or empty"),
+          flush=True)
+    if not debug_lines:
+        fail(f"the CLI's {pipeline_log} holds no DEBUG line")
     cli_events = []
     if os.path.exists(cli_log):
         with open(cli_log) as f:
@@ -4158,6 +4173,41 @@ def main() -> int:
                       f"(bound {bnd:.6f}, {by})"
                       for label, (t, (bnd, by)) in variant_ms.items()), flush=True)
 
+    # Pipeline.submit_chunk_packed on the phase's first chunk: the planes it
+    # submits are pack_chunk's, its outputs submit_packed_yuv's bit for bit,
+    # K1 once, and K1 bit-equal to its plain version on the chunk
+    print(f"  Pipeline.submit_chunk_packed on {K} {W}x{H} frames", flush=True)
+    submitted = []
+    inner = pipe.submit_packed_yuv
+    pipe.submit_packed_yuv = lambda p, h, w: (submitted.append(p), inner(p, h, w))[1]
+    pipe.reset()
+    torch.cuda.synchronize()
+    nms_kernel.launches = 0
+    got = pipe.submit_chunk_packed(frames[:K])
+    torch.cuda.synchronize()
+    packed_launches = nms_kernel.launches
+    del pipe.submit_packed_yuv
+    plane_diff = sum(int((np.asarray(a) != b).sum()) for a, b in zip(submitted[0], (y, u, v)))
+    pipe.reset()
+    want = pipe.submit_packed_yuv((y, u, v), H, W)
+    unequal = [f"{part}.{name}" for part, g, w_ in zip(("tracks", "detections"), got, want)
+               for name, a, b in zip(g._fields, g, w_) if not torch.equal(a, b)]
+    _, _, packed_k1_diff = _k1_chunk(pipe, planes, meta)
+    max_err = max(max_err, float(packed_k1_diff))
+    pipe.reset()
+    packed_ms = cuda_time_ms(lambda: pipe.submit_chunk_packed(frames[:K]), iters=5)
+    visible = int(got[0].visible[-1].sum())
+    print(f"  planes unequal to pack_chunk's: {plane_diff} bytes; outputs unequal to "
+          f"submit_packed_yuv's: {unequal or 'none'} ({visible} tracks visible at the last "
+          f"frame); K1 launches {packed_launches}, K1 mismatches on the chunk "
+          f"{packed_k1_diff}; {packed_ms / K:.4f} ms/frame with the host pack (CUDA events, "
+          f"{packed_ms:.3f} ms per chunk)", flush=True)
+    if plane_diff or unequal or packed_k1_diff or packed_launches != 1 or not visible:
+        fail(f"submit_chunk_packed: planes {plane_diff} bytes apart, outputs unequal "
+             f"{unequal}, K1 mismatches {packed_k1_diff}, K1 launches {packed_launches} "
+             f"(want 1), {visible} tracks visible")
+    pipe.reset()
+
     phase("6/14 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
@@ -4209,6 +4259,7 @@ def main() -> int:
     max_err = max(max_err, float(meshes["mismatches"]))
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
+               "chunk_packed": {"launches": packed_launches, "frames": K},
                **live["launches"], **trackers["launches"], **multi["launches"],
                **serving["launches"], **resume["launches"], **quant["launches"],
                **tools["launches"], **training["launches"], **meshes["launches"]}

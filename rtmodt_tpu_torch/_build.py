@@ -9,7 +9,8 @@ so an unchanged source is not rebuilt.  A failed build raises with the
 compiler's stderr; nothing falls back.
 
 Building is explicit or happens at a library's first use (a kernel's first
-launch on a CUDA tensor), never at import.
+launch on a CUDA tensor), never at import.  ``load`` logs the cache hit or
+the build at DEBUG.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from rtmodt_tpu_torch.utils.logging import logger
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -132,8 +135,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             path = os.path.join(build_dir(), f"lib{name}.so")
-            if not os.path.exists(path):
-                build_all([name])
+            where = os.path.relpath(path, BUILD_ROOT)
+            if os.path.exists(path):
+                logger.debug(f"kernel cache hit: {where}")
+            else:
+                seconds = build_all([name]).get(name, 0.0)
+                logger.debug(f"kernel cache store: {where} (built in {seconds:.2f} s)")
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib

@@ -3,9 +3,11 @@
 The port's own copy of ``rtmodt_tpu/config/loader.py`` for the sections the
 port runs: ``system``, ``ingestion``, ``detection``, ``tracking`` (all four
 trackers and GMC), ``events``, ``profiling``, ``visualization`` and
-``parallel``.  Defaults are built in Python (``DEFAULTS`` mirrors the
-reference package's ``config/default.yaml``).  ``yaml`` is imported only
-when a YAML path is given.  A YAML written with the original GPU repository's
+``parallel``.  The package ships ``default.yaml``
+(``default_config_path()``), the reference package's file key for key;
+``load_config()`` with no path builds the same config from ``DEFAULTS``
+without reading it, so ``yaml`` is imported only when a YAML path is given.
+A YAML written with the original GPU repository's
 key names (``confidence_threshold``, ``model_path``, a ``{width, height}``
 resolution, a ``[w, h]`` input size, ...) is translated first
 (``_REFERENCE_ALIASES``, as the reference loader does); the keys of
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -248,7 +251,8 @@ class PipelineConfig:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
-# The reference package's config/default.yaml, for the sections ported here.
+# The packaged default.yaml, for the sections ported here (held equal to it
+# by tests/test_torch_port_config_files.py).
 DEFAULTS: dict[str, Any] = {
     "system": {"device": "tpu", "log_level": "INFO", "log_dir": "logs"},
     "ingestion": {"source": 0, "backend": "opencv", "reconnect_delay_sec": 2.0,
@@ -368,6 +372,12 @@ def _apply_reference_aliases(raw: dict) -> dict:
         logger.info(f"config: reference detection.input_size {list(size)} -> "
                     f"square {raw['detection']['input_size']} (letterbox side)")
     return raw
+
+
+def default_config_path() -> str:
+    """The packaged ``default.yaml``: a copy of it is where a deployment's
+    own config starts."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "default.yaml")
 
 
 def load_yaml(path: str) -> dict[str, Any]:

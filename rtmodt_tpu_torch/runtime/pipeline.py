@@ -335,6 +335,17 @@ class Pipeline:
         self.chunks_submitted += 1
         return out
 
+    def submit_chunk_packed(self, frames_bgr: np.ndarray) -> tuple[TrackOutputs, NMSResult]:
+        """Run one chunk of BGR frames (K, H, W, 3) uint8 on the packed
+        program: the host packs it to planar I420 at content size
+        (``pack_chunk``, each frame as ``pack_i420_planar`` packs it), then
+        ``submit_packed_yuv``.  Returns the device (TrackOutputs, NMSResult),
+        K leading."""
+        self._refuse_host_tracker("submit_chunk_packed")
+        h, w = frames_bgr.shape[1:3]
+        planes, _ = pack_chunk(np.ascontiguousarray(frames_bgr), self.cfg.detection.input_size)
+        return self.submit_packed_yuv(planes, h, w)
+
     @torch.no_grad()
     def submit_chunk(self, frames: np.ndarray | torch.Tensor) -> tuple[TrackOutputs, NMSResult]:
         """Run one chunk of BGR frames (K, H, W, 3) uint8 (``transport:

@@ -18,6 +18,9 @@ process draws: over several cards they are refused (restrict the cards with
 ``CUDA_VISIBLE_DEVICES``).  ``--mjpeg-port N`` serves the annotated frames
 (the mosaic with several ``-s``) as MJPEG on port N while the run lasts
 (``http://host:N/``; 0 picks a free port, which the log names).
+It logs to stderr at ``system.log_level`` and to
+``<system.log_dir>/pipeline.log`` at DEBUG, rotated at 50 MB with five
+backups (``setup_sinks``).
 ``--resume-state PATH`` keeps a kill-and-resume snapshot at PATH, rewritten
 every ``--state-interval`` frames (default 300) and at clean exit; started
 again with the same flags after a kill, the run restores it and carries on
@@ -32,21 +35,20 @@ file resumes at the frame after the snapshot's).
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rtmodt_tpu_torch.config import load_config  # noqa: E402
+from rtmodt_tpu_torch.config import default_config_path, load_config  # noqa: E402
 from rtmodt_tpu_torch.utils.logging import logger  # noqa: E402
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-c", "--config", dest="config_path", default=None,
-                    help="YAML config path (default: the built-in defaults, "
-                         "which mirror the reference's default.yaml)")
+                    help="YAML config path (default: the packaged "
+                         "rtmodt_tpu_torch/config/default.yaml)")
     ap.add_argument("-s", "--source", action="append", default=[],
                     help="override ingestion.source (RTSP URL / file / webcam index)")
     ap.add_argument("--display", action=argparse.BooleanOptionalAction, default=False,
@@ -66,6 +68,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def setup_sinks(level: str, log_dir: str) -> None:
+    """The CLI's log sinks, the reference CLI's: stderr at ``level`` and
+    ``<log_dir>/pipeline.log`` at DEBUG, rotated at 50 MB (five backups)."""
+    os.makedirs(log_dir, exist_ok=True)
+    logger.remove()
+    logger.add(sys.stderr, level=level)
+    logger.add(os.path.join(log_dir, "pipeline.log"), level="DEBUG", rotation="50 MB")
+
+
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
     overrides: dict = {}
@@ -79,16 +90,8 @@ def main(argv: list[str] | None = None) -> int:
         # the monitor streams ANNOTATED frames, so it implies visualization
         overrides.setdefault("visualization", {}).update(
             {"mjpeg_port": args.mjpeg_port, "enabled": True})
-    cfg = load_config(args.config_path, overrides)
-
-    os.makedirs(cfg.system.log_dir, exist_ok=True)
-    logger.setLevel(logging.DEBUG)
-    for h in logger.handlers:
-        h.setLevel(cfg.system.log_level.upper())
-    log_file = logging.FileHandler(os.path.join(cfg.system.log_dir, "pipeline.log"))
-    log_file.setLevel(logging.DEBUG)
-    log_file.setFormatter(logging.Formatter("%(asctime)s | %(levelname)-8s | %(message)s"))
-    logger.addHandler(log_file)
+    cfg = load_config(args.config_path or default_config_path(), overrides)
+    setup_sinks(cfg.system.log_level, cfg.system.log_dir)
 
     from rtmodt_tpu_torch.device import config_device
     from rtmodt_tpu_torch.parallel.multistream import MultiStreamPipeline, stream_devices
