@@ -13,8 +13,11 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      path's shapes (16 frames x 300 candidates): random, tied, zero-score,
      class-offset, scattered zero scores, identical boxes, no and one valid
      candidate, zero-width and inverted boxes; then the kernel's edges (K
-     from 1 to 1024, 1 and 64 frames, thresholds -0.1, 0 and 0.9999); keep
-     masks must be equal bit for bit;
+     from 1 to 1024, 1 and 64 frames, thresholds -0.1, 0 and 0.9999); then
+     its wide path (K > 1024: random, scattered zero scores, identical boxes,
+     one valid candidate at K = 1025 and 2048 with 1 and 16 frames, 8400
+     with 2 and 33600 with 1, the plain version on the card from 8400) and
+     its times there; keep masks must be equal bit for bit;
   4. the rich640d YOLOv8s weights through ``params_from_jax``; the bf16
      channels_last forward against a float32 forward with TF32 off;
   5. the slice: 720p frames drawn in numpy -> ``pack_chunk`` ->
@@ -28,6 +31,9 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      then ``Pipeline.submit_chunk_packed`` on the first chunk's BGR frames:
      its planes equal ``pack_chunk``'s, its outputs ``submit_packed_yuv``'s
      bit for bit, K1 once and bit-equal to its plain version on the chunk;
+     then one chunk with ``detection.nms_candidates: 2048`` through
+     ``submit_packed_yuv`` (K1's wide path, once): its detections equal to
+     ``suppress_and_pack`` with the plain version on the same candidates;
   6. the live per-frame paths: ``Pipeline.run`` on a 25-fps 720p file (a)
      per stage, with the renderer and the annotated video saved, and (b) on
      the packed per-frame path with 2 frames in flight: K1's launches, the
@@ -143,7 +149,7 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      ``run_inference_torch detect --quant int8``: mAP@0.5, K1 and one int8
      GEMM per quantized layer and image; (e) ``tools/selftest_e2e_torch.py``
      at its defaults in a child process: IDF1 and MOTA >= 0.95; (f)
-     ``tools/train_embedder_torch.py`` for 100 steps: held-out rank-1 and
+     ``tools/train_embedder_torch.py`` for 60 steps: held-out rank-1 and
      margin before and after, rank-1 must rise;
  14. several ranks (``parallel/mesh.py``), two sharing the one card over
      gloo: (a) the data-parallel step (``training_rich640d.yaml``, global B =
@@ -159,7 +165,9 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      ``run`` with snapshots whose rank 1 dies half-way, resumed from its
      snapshot under one rank and under two: the uninterrupted events; (e)
      ``tools/dryrun_multichip_torch.py`` on the two ranks, and the CLI with
-     four ``-s`` on one card, in its own process.
+     four ``-s`` and ``--save-video`` on one card, in its own process, then
+     over the two ranks (``RTMODT_MESH_DEVICES``): rank 0's mosaic video
+     against the one process's, frame by frame (HUD off).
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
@@ -190,6 +198,16 @@ N_CHUNKS = 8           # chunks in the counted main-path run
 N_OBJECTS = 8
 H, W = 720, 1280
 CANDIDATES = 300
+# K1's wide path (K > 1024): detection.nms_candidates past the one-CTA
+# kernel, up to every anchor of a 640 (8400) and a 1280 (33600) input
+WIDE_CASES = ([(name, b, k) for name in ("random", "holes", "identical", "one_valid")
+               for k in (1025, 2048) for b in (1, 16)]
+              + [(name, b, k) for name in ("random", "holes", "identical", "one_valid")
+                 for b, k in ((2, 8400), (1, 33600))])
+WIDE_TIMED = {1025: 16, 2048: 16, 8400: 2, 33600: 1}   # K -> B of the timed random case
+PLAIN_ON_CARD_K = 8400  # from this K the plain version runs on the card (seconds on the host)
+WIDE_CANDIDATES = 2048  # phase 5's chunk through K1's wide path
+ONE_CTA_MAX_K = 1024
 F32_PEAK = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
 # phase 6: the live per-frame paths
@@ -267,7 +285,7 @@ STEPS_PER_EPOCH = 8
 TRAIN_STEPS = 24       # B = 16 (three epochs of 8 steps, all in the warmup)
 SAVE_STEP = 16         # the checkpoint that (c) resumes from
 QAT_STEPS = 4
-EMBED_STEPS = 100      # train_embedder_torch (reference default 4000)
+EMBED_STEPS = 60       # train_embedder_torch (reference default 4000)
 SELFTEST_MIN = 0.95    # IDF1 and MOTA of tools/selftest_e2e_torch.py
 SELFTEST_ARGS: list[str] = []   # its defaults: 320 steps of yolov8n at 320, fp32
 # bf16 against float32 (TF32 off): one step from the same state on each of
@@ -298,6 +316,13 @@ MESH_NORM_TOL = 1e-3    # relative, the global gradient norm
 MESH_BN_TOL = 1e-4      # BN running statistics, relative to each tensor's max |value|
 MESH_KILL_CHUNK = 5     # (d): rank 1 dies before its sixth chunk
 MESH_INTERVAL = 2 * S_STREAMS * T_MULTI   # (d): a snapshot every two chunks
+# (e): the share of a mosaic frame's pixels that may differ between the CLI
+# over two ranks and in one process.  Equal tracks draw equal frames; the
+# ranks' forward at B = 16 against one process's at 32 (TF32 convs in the
+# CLI) can move a box across a pixel edge, which moves a drawn line by one
+# pixel (~1e-4 of a 2560x1440 mosaic); a tiling or stream-order fault moves
+# a quarter of it
+MOSAIC_SHARE_TOL = 1e-2
 
 
 def phase(msg: str) -> None:
@@ -329,13 +354,13 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, name: str | None = None) -> float | None:
+def device_ms(fn, iters: int, name: str | None = None, per_call: int = 1) -> float | None:
     """Device time per call of fn(), from torch.profiler's CUDA trace: the
     self device time of every kernel and copy it ran, summed, over ``iters``
-    calls.  With ``name``, fn() launches one kernel whose name holds it, and
-    the time is that kernel's mean over the launches the trace holds (a trace
-    that lost some would otherwise read low); a count other than ``iters`` is
-    printed.  None when the trace holds none."""
+    calls.  With ``name``, fn() launches ``per_call`` kernels whose names hold
+    it, and the time is their sum's mean over the calls the trace holds (a
+    trace that lost some would otherwise read low); a count other than
+    ``iters * per_call`` is printed.  None when the trace holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -354,10 +379,10 @@ def device_ms(fn, iters: int, name: str | None = None) -> float | None:
         return None
     if name is None:
         return total_us / iters / 1e3
-    if count != iters:
+    if count != iters * per_call:
         print(f"  profiler trace holds {count} launches of {name} for {iters} calls",
               flush=True)
-    return total_us / count / 1e3
+    return total_us / count * per_call / 1e3
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -380,27 +405,39 @@ def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]
     """Least time for the greedy suppression of these inputs on an H100:
     bytes = every score read once (4 B) + every keep flag written once (1 B)
     + the box (16 B) of each valid candidate only, since a row with score
-    <= 0 never suppresses and is never kept; operations = the IoU test of
-    every pair of valid candidates (i < j, 14 f32 ops: 4 min/max, 2 sub,
-    2 clamp, 1 mul, 1 add, 1 sub, 1 add eps, 1 div, 1 compare) plus 3 ops
-    per valid candidate's area."""
+    <= 0 never suppresses and is never kept, and for K > 1024 (the wide path,
+    whose conflict words cannot stay on chip) the words on or right of each
+    row's diagonal group written once and read once (4 B each); operations =
+    the IoU test of every pair of valid candidates (i < j, 14 f32 ops: 4
+    min/max, 2 sub, 2 clamp, 1 mul, 1 add, 1 sub, 1 add eps, 1 div, 1
+    compare) plus 3 ops per valid candidate's area."""
     b, k = scores.shape
     v = (scores > 0).sum(dim=1).double()
     nbytes = scores.numel() * 4 + b * k + float(v.sum()) * 16
+    if k > ONE_CTA_MAX_K:
+        for n in v.long().tolist():
+            rows = np.arange(n)
+            nbytes += 2 * 4 * float(((n + 31) // 32 - rows // 32).sum())
     ops = float((v * (v - 1) / 2 * 14 + 3 * v).sum())
     t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str) -> dict:
-    """K1's time on these candidates (profiler trace and CUDA graph, per
-    launch), its plain version's and its bound, printed under ``label``."""
+def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str,
+             plain_iters: int = 20, iters: int = 100) -> dict:
+    """K1's time on these candidates (profiler trace and CUDA graph of
+    ``iters`` launches, per launch; the wide path's three kernels summed),
+    its plain version's and its bound, printed under ``label``."""
     from rtmodt_tpu_torch.ops import nms_kernel
 
+    wide = scores.shape[1] > ONE_CTA_MAX_K
     launch = lambda: nms_kernel.greedy_suppress(boxes, scores, iou)  # noqa: E731
     plain = lambda: nms_kernel.greedy_suppress_reference(boxes, scores, iou)  # noqa: E731
-    t = {"trace_ms": device_ms(launch, iters=100, name="nms_greedy_kernel"),
-         "graph_ms": graph_ms(launch, iters=100), "plain_ms": cuda_time_ms(plain, iters=20),
+    t = {"trace_ms": device_ms(launch, iters=iters,
+                               name="nms_wide" if wide else "nms_greedy_kernel",
+                               per_call=3 if wide else 1),
+         "graph_ms": graph_ms(launch, iters=iters),
+         "plain_ms": cuda_time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
          "bound": nms_bound_ms(boxes, scores), "valid": int((scores > 0).sum())}
     print(f"  K1 at {label}, {t['valid']} valid of {scores.numel()}: "
           + ("not measured" if t["trace_ms"] is None else f"{t['trace_ms']:.5f} ms")
@@ -1309,10 +1346,11 @@ def _watch_monitor(opened: list, want_parts: int, out: dict) -> None:
 
 
 def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0,
-                        counts: dict | None = None) -> tuple:
-    """Run ``module``'s ``main(argv)`` in a fresh interpreter and read K1's
-    launch count of that process from its last line (``counts``, when given,
-    also gets the int8 GEMM's).  Returns (process, launches, seconds)."""
+                        counts: dict | None = None, env: dict | None = None) -> tuple:
+    """Run ``module``'s ``main(argv)`` in a fresh interpreter (with ``env``
+    added to this process's environment) and read K1's launch count of that
+    process from its last line (``counts``, when given, also gets the int8
+    GEMM's).  Returns (process, launches, seconds)."""
     code = (f"import json, sys\nsys.path.insert(0, {ROOT!r})\n"
             f"from {module} import main\n"
             "from rtmodt_tpu_torch.ops import int8_conv, nms_kernel\n"
@@ -1322,7 +1360,7 @@ def _counted_subprocess(module: str, argv: list[str], timeout: float = 600.0,
             "sys.exit(rc)\n")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                          text=True, timeout=timeout)
+                          text=True, timeout=timeout, env={**os.environ, **(env or {})})
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-3000:], "\n", proc.stderr[-3000:], file=sys.stderr)
@@ -3920,15 +3958,28 @@ def mesh_paths(smi: str) -> dict:
     if proc.returncode != 0 or len(oks) != 3 or not all(" OK" in ln for ln in oks):
         print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
         fail("(e) tools/dryrun_multichip_torch.py failed")
-    cli_cfg = os.path.join(OUT_DIR, "mesh_cli.json")
-    with open(cli_cfg, "w") as f:
-        json.dump(_merge(cfg_for(os.path.join(OUT_DIR, "mesh_cli.jsonl")),
-                         {"system": {"log_dir": os.path.join(OUT_DIR, "logs")},
-                          "parallel": {"num_streams": 1}}), f)
-    argv = ["-c", cli_cfg, "--max-frames", str(2 * T_MULTI)]
-    for path in files:
-        argv += ["-s", path]
-    proc, cli_launches, cli_s = _counted_subprocess("tools.run_pipeline_torch", argv)
+    # the CLI with --save-video: in one process, then over two ranks
+    # (RTMODT_MESH_DEVICES), whose rank 0 tiles both ranks' tiles; the HUD
+    # (wall-clock fps) off, so that the two videos can be compared
+    import cv2
+
+    videos = {n: os.path.join(OUT_DIR, f"mesh_cli_{n}.mp4") for n in ("one", "two")}
+    _fresh(*videos.values())
+    procs = {}
+    for n in ("one", "two"):
+        cli_cfg = os.path.join(OUT_DIR, f"mesh_cli_{n}.json")
+        with open(cli_cfg, "w") as f:
+            json.dump(_merge(cfg_for(os.path.join(OUT_DIR, f"mesh_cli_{n}.jsonl")),
+                             {"system": {"log_dir": os.path.join(OUT_DIR, "logs")},
+                              "parallel": {"num_streams": 1},
+                              "visualization": {"enabled": True, "show_hud": False,
+                                                "save_path": videos[n]}}), f)
+        argv = ["-c", cli_cfg, "--max-frames", str(2 * T_MULTI), "--save-video"]
+        for path in files:
+            argv += ["-s", path]
+        env = {M.ENV_DEVICES: ",".join(MESH_DEVICES)} if n == "two" else None
+        procs[n] = _counted_subprocess("tools.run_pipeline_torch", argv, env=env)
+    proc, cli_launches, cli_s = procs["one"]
     ranks_line = [ln for ln in proc.stderr.splitlines() if "one rank each" in ln]
     print(f"  (e) the CLI with {len(files)} -s on {torch.cuda.device_count() if DEVICE == 'cuda' else 0} "
           f"card(s): exit {proc.returncode}, K1 launches in its process {cli_launches}, "
@@ -3937,6 +3988,34 @@ def mesh_paths(smi: str) -> dict:
         fail("(e) the CLI with four streams did not run them in its own process")
     out["launches"]["multistream_mesh_cli"] = {"launches": cli_launches,
                                                "frames": 2 * T_MULTI * len(files)}
+    proc2, _, cli2_s = procs["two"]
+    by_rank = [json.loads(ln.split("NMS kernel launches by rank ")[1])
+               for ln in proc2.stderr.splitlines() if "NMS kernel launches by rank " in ln]
+    frames = {}
+    for n, path in videos.items():
+        cap, frames[n] = cv2.VideoCapture(path), []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames[n].append(frame)
+        cap.release()
+    shares = [float((a != b).any(-1).mean()) for a, b in zip(frames["one"], frames["two"])
+              if a.shape == b.shape]
+    equal = sum(s_ == 0.0 for s_ in shares)
+    print(f"  (e) the CLI with {len(files)} -s and --save-video over {len(MESH_DEVICES)} ranks "
+          f"({','.join(MESH_DEVICES)}): exit {proc2.returncode}, K1 launches by rank "
+          f"{by_rank[0] if by_rank else 'not logged'}, {len(frames['two'])} mosaic frames "
+          f"({'x'.join(map(str, frames['two'][0].shape[1::-1])) if frames['two'] else '-'}) "
+          f"against {len(frames['one'])} from one process: {equal} equal bit for bit, at most "
+          f"{max(shares, default=1.0):.2e} of a frame's pixels apart ({cli2_s:.1f} s)",
+          flush=True)
+    if (not by_rank or min(by_rank[0]) == 0 or len(shares) != len(frames["one"])
+            or len(shares) != 2 * T_MULTI or max(shares) > MOSAIC_SHARE_TOL):
+        fail("(e) the CLI's mosaic over two ranks is not one process's")
+    out["launches"].update({f"multistream_mesh_cli_video_rank{r}": {
+        "launches": n, "frames": 2 * T_MULTI * len(files) // len(by_rank[0])}
+        for r, n in enumerate(by_rank[0])})
     print(json.dumps({"phase14": {k: v for k, v in out.items() if k != "launches"},
                       "card": smi}), flush=True)
     return out
@@ -4015,6 +4094,34 @@ def main() -> int:
         if diff:
             fail(f"NMS kernel keep mask differs from the plain version "
                  f"({name}, B={b}, K={k}, t={t}: {diff})")
+    # the wide path (K > 1024: compaction tiles, conflict words in device
+    # scratch, the scan's shared removed words), one launch a call
+    t3 = time.perf_counter()
+    wgen = torch.Generator().manual_seed(1)
+    for name, b, k in WIDE_CASES:
+        boxes, scores = synthetic_case(name, wgen, b, k)
+        plain_dev = dev if k >= PLAIN_ON_CARD_K else torch.device("cpu")
+        t0 = time.perf_counter()
+        want = nms_kernel.greedy_suppress_reference(boxes.to(plain_dev), scores.to(plain_dev),
+                                                    0.45).cpu()
+        plain_s = time.perf_counter() - t0
+        before = nms_kernel.launches
+        got = nms_kernel.greedy_suppress(boxes.to(dev), scores.to(dev), 0.45)
+        torch.cuda.synchronize()
+        diff, calls = int((got.cpu() != want).sum()), nms_kernel.launches - before
+        print(f"  {name} B={b} K={k}: valid {int((scores > 0).sum())}, kept "
+              f"{int(want.sum())}/{want.numel()}, mismatches {diff}, launches {calls} "
+              f"(plain version on the {plain_dev.type}: {plain_s:.2f} s)", flush=True)
+        if diff or calls != 1:
+            fail(f"NMS kernel's wide path: {diff} mismatches, {calls} launches "
+                 f"({name}, B={b}, K={k})")
+    wide_k1 = {}
+    for k, b in WIDE_TIMED.items():
+        boxes, scores = synthetic_case("random", wgen, b, k)
+        big = k >= PLAIN_ON_CARD_K      # a millisecond or more a launch
+        wide_k1[k] = k1_times(boxes.to(dev), scores.to(dev), 0.45, f"K={k}, B={b} (random)",
+                              plain_iters=2 if big else 5, iters=20 if big else 100)
+    print(f"  the wide path's cases and times took {time.perf_counter() - t3:.1f} s", flush=True)
 
     phase("4/14 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
     overrides5 = {
@@ -4208,6 +4315,51 @@ def main() -> int:
              f"(want 1), {visible} tracks visible")
     pipe.reset()
 
+    # one chunk at detection.nms_candidates 2048 through submit_packed_yuv:
+    # K1's wide path inside the chunk program, its detections equal to
+    # suppress_and_pack with the plain version (CPU tensors) on the same
+    # candidates, caught where the chunk program hands them over
+    from rtmodt_tpu_torch.config.loader import _deep_merge
+    from rtmodt_tpu_torch.ops import nms as nms_ops
+    from rtmodt_tpu_torch.ops.yuv import packed_meta, unletterbox_boxes_packed
+
+    wide_pipe = Pipeline(load_config(overrides=_deep_merge(
+        overrides5, {"detection": {"nms_candidates": WIDE_CANDIDATES}})), device=DEVICE)
+    caught, real_pack = [], nms_ops.suppress_and_pack
+
+    def catch(*args):
+        out = real_pack(*args)
+        caught.append((args, out))
+        return out
+
+    nms_ops.suppress_and_pack = catch
+    try:
+        torch.cuda.synchronize()
+        nms_kernel.launches = 0
+        _, wide_dets = wide_pipe.submit_packed_yuv(planes, H, W)
+        torch.cuda.synchronize()
+        wide_launches = nms_kernel.launches
+    finally:
+        nms_ops.suppress_and_pack = real_pack
+    (wcb, wcs, wcc, *wargs), wide_out = caught[0]
+    twin = suppress_and_pack(wcb.cpu(), wcs.cpu(), wcc.cpu(), *wargs)
+    wide_unequal = [f for f in twin._fields
+                    if not torch.equal(getattr(wide_out, f).cpu(), getattr(twin, f))]
+    src_boxes = unletterbox_boxes_packed(twin.boxes.to(dev), packed_meta(H, W, SIZE))
+    if not (torch.equal(wide_dets.boxes, src_boxes) and torch.equal(wide_dets.count.cpu(),
+                                                                    twin.count)):
+        wide_unequal.append("source boxes")
+    print(f"  one chunk at nms_candidates {WIDE_CANDIDATES} (K = {wcs.shape[1]}, valid "
+          f"candidates/frame {int((wcs > 0).sum(1).min())}-{int((wcs > 0).sum(1).max())}, "
+          f"detections {twin.count.tolist()}): K1 launches {wide_launches}, fields unequal to "
+          f"suppress_and_pack with the plain version: {wide_unequal or 'none'}", flush=True)
+    anchors = sum((SIZE // stride) ** 2 for stride in (8, 16, 32))
+    if (wide_launches != 1 or wide_unequal or wcs.shape[1] != min(WIDE_CANDIDATES, anchors)
+            or wcs.shape[1] <= ONE_CTA_MAX_K):
+        fail(f"the chunk at nms_candidates {WIDE_CANDIDATES}: K1 launches {wide_launches}, "
+             f"unequal {wide_unequal}, K = {wcs.shape[1]}")
+    del wide_pipe
+
     phase("6/14 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
     live = live_paths(smi)
@@ -4260,6 +4412,7 @@ def main() -> int:
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
     by_path = {"chunk": {"launches": launches, "frames": summary["frames"]},
                "chunk_packed": {"launches": packed_launches, "frames": K},
+               "chunk_candidates_2048": {"launches": wide_launches, "frames": K},
                **live["launches"], **trackers["launches"], **multi["launches"],
                **serving["launches"], **resume["launches"], **quant["launches"],
                **tools["launches"], **training["launches"], **meshes["launches"]}
@@ -4287,6 +4440,10 @@ def main() -> int:
                           ("b1_detect", serving["b1_detect"]),     # phase 9 (g), K = 1000
                           ("dense64", tools["dense_k1"]),          # phase 12 (d), K = 512
                           ("b1_train_val", training["val_k1"]))},  # phase 13 (b), K = 1000
+        # the wide path on random candidates (phase 3), B = WIDE_TIMED[K]
+        **{f"k{k}": {"ms": t["trace_ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "b": WIDE_TIMED[k]}
+           for k, t in wide_k1.items()},
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,13 +10,20 @@ with score <= 0 never suppress and are never kept.
 On this card the kernel is bound by latency; its roofline is bytes (5 per
 candidate for its score and keep flag, 16 more per valid candidate for its
 box), and the IoU tests of the valid pairs are a few MFLOP at most.
-The kernel (``csrc/nms_kernel.cu``) runs one 1024-thread CTA per frame in
-three steps: it compacts the valid rows (score > 0) in order with a
-block-wide ballot prefix sum; builds the conflict matrix of the valid pairs
-only, one u32 word of 32 columns per warp ballot; and runs greedy's serial
-scan in one warp in blocks of 32 rows, where the lane that owns a block's
-removed word walks the block in registers and the other lanes take the kept
-rows' words in parallel.
+For K <= 1024 the kernel (``csrc/nms_kernel.cu``) runs one 1024-thread CTA
+per frame in three steps: it compacts the valid rows (score > 0) in order
+with a block-wide ballot prefix sum; builds the conflict matrix of the valid
+pairs only, one u32 word of 32 columns per warp ballot; and runs greedy's
+serial scan in one warp in blocks of 32 rows, where the lane that owns a
+block's removed word walks the block in registers and the other lanes take
+the kept rows' words in parallel.  For K > 1024 (``nms_candidates`` up to
+every anchor) the same three steps run as three kernels over a scratch
+buffer that this wrapper allocates (``nms_scratch_bytes``: the compact rows
+and B x K x ceil(K/32) u32 conflict words, 8.8 MB a frame at K = 8400): the
+compaction loops over 1024-row tiles, the conflict words are built by one
+block per 32 rows of a frame, and the scan keeps the removed words in
+shared memory, each owned by one of the CTA's threads.  Either path is one
+call of ``nms_greedy_launch`` and counts one launch.
 
 ``greedy_suppress`` launches the kernel for CUDA tensors (or raises) and uses
 the plain version only for tensors on the CPU.
@@ -43,19 +50,26 @@ def _launcher():
     if _fn is None:
         lib = _build.load("nms_kernel")
         fn = lib.nms_greedy_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.nms_max_candidates.restype = ctypes.c_int
-        _fn = (fn, int(lib.nms_max_candidates()))
+        scratch = lib.nms_scratch_bytes
+        scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+        scratch.restype = ctypes.c_size_t
+        _fn = (fn, scratch)
     return _fn
 
 
-def pairwise_iou_batched(boxes: torch.Tensor) -> torch.Tensor:
-    """(B, K, 4) xyxy -> (B, K, K) IoU, element [b, i, j] = IoU(box i, box j),
-    with the plain version's exact operation order."""
-    a = boxes[:, :, None, :]
+# pairs of one slab of the plain version's conflict matrix: its float
+# temporaries stay near 0.5 GB whatever K is (K = 33600 is 1.1e9 pairs)
+SLAB_PAIRS = 1 << 24
+
+
+def pairwise_iou_batched(boxes: torch.Tensor, rows: slice = slice(None)) -> torch.Tensor:
+    """(B, K, 4) xyxy -> (B, R, K) IoU of the rows ``rows`` against every box,
+    element [b, i, j] = IoU(box i, box j), with the plain version's exact
+    operation order."""
+    a = boxes[:, rows, None, :]
     b = boxes[:, None, :, :]
     lt = torch.maximum(a[..., :2], b[..., :2])
     rb = torch.minimum(a[..., 2:], b[..., 2:])
@@ -73,13 +87,20 @@ def greedy_suppress_reference(boxes: torch.Tensor, scores: torch.Tensor,
 
     Sequential greedy satisfies ``keep[j] = not exists i < j: keep[i] and
     conflict[i, j]``, whose unique solution the iteration reaches in at most
-    K rounds."""
-    k = boxes.shape[1]
-    iou = pairwise_iou_batched(boxes)
-    thr = torch.tensor(iou_thresh, dtype=torch.float32, device=boxes.device)
-    upper = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
-    conflict = upper & (iou > thr) & (scores[:, :, None] > 0.0)
-    keep = torch.ones(scores.shape, dtype=torch.bool, device=boxes.device)
+    K rounds.  The (B, K, K) conflict matrix is built in slabs of rows (the
+    same elementwise operations, so the same bits)."""
+    b, k = scores.shape
+    dev = boxes.device
+    thr = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
+    idx = torch.arange(k, device=dev)
+    conflict = torch.empty((b, k, k), dtype=torch.bool, device=dev)
+    step = max(1, SLAB_PAIRS // max(1, b * k))
+    for i0 in range(0, k, step):
+        rows = slice(i0, min(k, i0 + step))
+        upper = idx[None, :] > idx[rows, None]
+        conflict[:, rows] = (upper & (pairwise_iou_batched(boxes, rows) > thr)
+                             & (scores[:, rows, None] > 0.0))
+    keep = torch.ones(scores.shape, dtype=torch.bool, device=dev)
     for _ in range(k):
         new = ~torch.any(conflict & keep[:, :, None], dim=1)
         if torch.equal(new, keep):
@@ -110,16 +131,20 @@ def greedy_suppress(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError("boxes and scores must be contiguous")
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must start on a 16-byte boundary (read as float4)")
-    fn, max_k = _launcher()
+    fn, scratch_bytes = _launcher()
     b, k = scores.shape
-    if k > max_k:
-        raise ValueError(f"K={k} candidates exceeds the kernel's {max_k}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
+    # the wide path's scratch (none for K <= 1024); freed on this stream
+    # after the launch, which the caching allocator orders after the kernels
+    nbytes = scratch_bytes(b, k)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=boxes.device)
+               if nbytes else None)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
+        err = fn(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, k,
                  float(iou_thresh), stream)
     if err != 0:
         raise RuntimeError(f"nms_greedy_launch failed with CUDA error {err}")

@@ -8,9 +8,11 @@ with ``torch.distributed``:
     rank and whether it runs inside the process group over those devices
     (``distributed``); a mesh that is not distributed is one process and
     makes no collective;
-  * ``create_mesh`` (every visible card by default, as ``jax.devices()``;
-    ``devices=`` takes an explicit list, e.g. ``["cpu"] * 4`` or ``["cuda:0",
-    "cuda:0"]``, the port's counterpart of the virtual device count);
+  * ``create_mesh`` (every visible card by default, as ``jax.devices()``,
+    and an error where no card is visible; ``devices=`` or
+    ``RTMODT_MESH_DEVICES`` take an explicit list, e.g. ``["cpu"] * 4`` or
+    ``["cuda:0", "cuda:0"]``, the port's counterpart of the virtual device
+    count, and the only way to a mesh of CPU ranks);
   * ``spawn(target, mesh, *args)`` starts one rank per mesh device (the
     ``spawn`` start method, a ``tcp://127.0.0.1`` rendezvous on a free port)
     and returns each rank's ``target(rank_mesh, *args)``; NCCL where every
@@ -47,6 +49,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from rtmodt_tpu_torch.device import resolve_device
 
 ENV_DEVICES = "RTMODT_MESH_DEVICES"   # the mesh's devices, set in each rank by ``spawn``
 ENV_HOSTS = "RTMODT_MESH_HOSTS"
@@ -125,10 +129,11 @@ class Mesh:
 
 
 def visible_devices() -> list[torch.device]:
-    """Every visible card, or the CPU where there is none (``jax.devices()``)."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """Every visible card (``jax.devices()``).  Where there is none it raises,
+    as ``device.resolve_device`` does: a mesh runs on the CPU only where the
+    caller names it."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _in_group() -> bool:
@@ -138,7 +143,8 @@ def _in_group() -> bool:
 def create_mesh(num_devices: int | None = None, axis: str = "data",
                 devices: Sequence[str | torch.device] | None = None) -> Mesh:
     """A mesh of the first ``num_devices`` of ``devices`` (default: the
-    rank's mesh inside ``spawn``, else every visible card).  Inside a rank,
+    rank's mesh inside ``spawn`` or ``RTMODT_MESH_DEVICES``, else every
+    visible card; with neither and no card it raises).  Inside a rank,
     the whole mesh is the process group's (``distributed``) and a mesh of
     one device is this rank's own card, which makes no collective."""
     env = os.environ.get(ENV_DEVICES)

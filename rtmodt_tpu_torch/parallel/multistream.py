@@ -30,15 +30,19 @@ time-aligned (T, S) chunks with ``pipeline_depth`` chunks in flight, one
 ``ZoneEventEngine`` per stream (its events carry ``{"stream": si}``, the
 global index; every rank appends its streams' lines to the configured log,
 one whole line per write), a degraded mode in which a stream that ends or
-dies is fed blank frames, and an optional mosaic of the annotated streams
-(one rank only: it tiles every stream).  With ``state_path`` it writes
-kill-and-resume snapshots (``runtime/state_store.py``; rank 0 gathers every
+dies is fed blank frames, and an optional mosaic of the annotated streams:
+each rank draws its own streams' tiles, rank 0 gathers them
+(``gather_objects``, once a chunk), tiles them, and alone writes the video,
+publishes to the MJPEG monitor and shows the window.  With ``state_path``
+it writes kill-and-resume snapshots (``runtime/state_store.py``; rank 0 gathers every
 stream's state into the one file) and resumes from one: each FILE source
 drops the frames its stream already consumed.  Over several ranks the loop
-makes one host all-reduce of four integers per chunk (the chunk's real
-frames, and the resolution for a rank whose streams gave none yet), so
-that every rank runs until every stream has ended and snapshots at the same
-frames, as one process would; the summary is gathered to rank 0.
+makes one host all-reduce of a few integers per chunk (the chunk's real
+frames, the resolution for a rank whose streams gave none yet, the display
+window's quit, and with the mosaic on which of the chunk's rows hold a real
+frame), so that every rank runs until every stream has ended, snapshots at
+the same frames and draws the same rows, as one process would; the summary
+is gathered to rank 0.
 """
 
 from __future__ import annotations
@@ -80,9 +84,13 @@ class MosaicAnnotator:
     ``--save-video`` / the MJPEG monitor (``visualization.mjpeg_port``).
     Track ids are per stream, so are the centroid trails; a dead or short
     slot gets a black tile.  ``visualization.enabled:
-    false`` still tiles the raw streams, without drawing."""
+    false`` still tiles the raw streams, without drawing.  ``streams`` are
+    the global indices of the streams this process draws (default all of
+    them); over several ranks each rank draws its own (``tiles``) and rank 0
+    tiles every rank's (``grid``)."""
 
-    def __init__(self, vcfg, names: list[str], num_streams: int):
+    def __init__(self, vcfg, names: list[str], num_streams: int,
+                 streams: range | None = None):
         from rtmodt_tpu_torch.visualization.renderer import FrameRenderer
 
         self.annotate = vcfg.enabled
@@ -94,14 +102,16 @@ class MosaicAnnotator:
         self.show_hud = vcfg.show_hud and vcfg.enabled
         self.names = names
         self.s = num_streams
+        self.streams = range(num_streams) if streams is None else streams
         self.cols = int(np.ceil(np.sqrt(num_streams)))
         self.rows = int(np.ceil(num_streams / self.cols))
         self.trail_len = vcfg.trail_length
-        self._trails: list[dict[int, list[tuple[int, int]]]] = [{} for _ in range(num_streams)]
+        drawn = len(self.streams)
+        self._trails: list[dict[int, list[tuple[int, int]]]] = [{} for _ in range(drawn)]
         # ids unseen far past any re-match window are dropped (the facade's
         # policy), so 24/7 runs keep no graveyard of trails
-        self._frame_count = [0] * num_streams
-        self._trail_seen: list[dict[int, int]] = [{} for _ in range(num_streams)]
+        self._frame_count = [0] * drawn
+        self._trail_seen: list[dict[int, int]] = [{} for _ in range(drawn)]
 
     def _prune_trails(self, si: int) -> None:
         self._frame_count[si] += 1
@@ -114,8 +124,8 @@ class MosaicAnnotator:
             self._trails[si].pop(tid, None)
 
     def tracks_for(self, host: TrackOutputs, t: int, si: int) -> list:
-        """Host TrackOutputs (T, S, N, ...) -> the visible Tracks of frame t
-        of stream si, with their trails."""
+        """Host TrackOutputs (T, S, N, ...) of the drawn streams -> the
+        visible Tracks of frame t of drawn stream si, with their trails."""
         from rtmodt_tpu_torch.tracking.tracker import Track
 
         trails = self._trails[si]
@@ -137,24 +147,29 @@ class MosaicAnnotator:
                 trail=list(trail)))
         return out
 
-    def mosaic(self, host: TrackOutputs, t: int, bgr_row: list, zones, fps: float) -> np.ndarray:
-        """Frame t of a chunk: every stream's tile annotated (a black tile
-        for a dead slot, ``None`` in ``bgr_row``), tiled into one (rows * H,
-        cols * W) BGR frame with per-tile stream labels and an aggregate-fps
-        HUD."""
+    def tiles(self, host: TrackOutputs, t: int, bgr_row: list, zones,
+              shape: tuple[int, ...]) -> list[np.ndarray]:
+        """Frame t of a chunk, the drawn streams' tiles: each stream's tracks
+        drawn on its frame (a black tile of ``shape`` for a dead slot,
+        ``None`` in ``bgr_row``) with its global stream label."""
         import cv2
 
-        shape = next(f.shape for f in bgr_row if f is not None)
         tiles = []
-        for si in range(self.s):
-            f = bgr_row[si]
+        for si, f in enumerate(bgr_row):
             f = np.zeros(shape, np.uint8) if f is None else f
             if self.annotate:
                 self.renderer.render(f, self.tracks_for(host, t, si), zones)
-                cv2.putText(f, f"cam{si}", (8, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
+                cv2.putText(f, f"cam{self.streams[si]}", (8, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
                             (80, 220, 80), 2, cv2.LINE_AA)
             tiles.append(f)
-        tiles += [np.zeros(shape, np.uint8)] * (self.rows * self.cols - self.s)
+        return tiles
+
+    def grid(self, tiles: list[np.ndarray], fps: float) -> np.ndarray:
+        """Every stream's tile, in stream order, tiled into one (rows * H,
+        cols * W) BGR frame with an aggregate-fps HUD."""
+        import cv2
+
+        tiles = tiles + [np.zeros_like(tiles[0])] * (self.rows * self.cols - self.s)
         grid = np.vstack([np.hstack(tiles[r * self.cols:(r + 1) * self.cols])
                           for r in range(self.rows)])
         if self.show_hud and fps > 0:
@@ -162,17 +177,28 @@ class MosaicAnnotator:
                         cv2.FONT_HERSHEY_SIMPLEX, 0.7, (255, 255, 255), 2, cv2.LINE_AA)
         return grid
 
+    def mosaic(self, host: TrackOutputs, t: int, bgr_row: list, zones, fps: float) -> np.ndarray:
+        """Frame t of a chunk in one process that draws every stream: its
+        tiles (a black tile for a dead slot, ``None`` in ``bgr_row``) tiled
+        into one frame with per-tile stream labels and an aggregate-fps HUD."""
+        shape = next(f.shape for f in bgr_row if f is not None)
+        return self.grid(self.tiles(host, t, bgr_row, zones, shape), fps)
+
 
 def _split_ts(x: torch.Tensor, t: int, s: int) -> torch.Tensor:
     return x.reshape(t, s, *x.shape[1:])
 
 
 def stream_devices(num_streams: int, device: str = "cuda") -> list[str]:
-    """The cards S streams run on, one rank each: every visible card where
-    their count divides S, one card otherwise (the reference's default
-    mesh); the CPU is one device."""
+    """The devices S streams run on, one rank each: those
+    ``RTMODT_MESH_DEVICES`` names where it is set (``cpu,cpu``; ``cuda:0,cuda:0``
+    for two ranks sharing one card); else every visible card where their
+    count divides S, one card otherwise (the reference's default mesh); the
+    CPU is one device."""
     from rtmodt_tpu_torch.device import resolve_device
 
+    if os.environ.get(ENV_DEVICES):
+        return os.environ[ENV_DEVICES].split(",")
     if resolve_device(device).type == "cpu":
         return ["cpu"]
     n = torch.cuda.device_count()
@@ -407,15 +433,16 @@ class MultiStreamPipeline:
                        else [0] * s_streams)
         dead = [bool(d) for d in resume["dead"]] if resume else [False] * s_streams
         # the annotated mosaic (window, video file and/or MJPEG monitor) is
-        # opt-in: the headless loop keeps no BGR frame on the host
+        # opt-in: the headless loop keeps no BGR frame on the host.  Every
+        # rank draws its streams' tiles; rank 0 tiles them and alone writes,
+        # publishes and shows
         render_on = display or vcfg.save_video or vcfg.mjpeg_port is not None
-        if render_on and mesh.world > 1:
-            raise ValueError("the mosaic (display, visualization.save_video, mjpeg_port) tiles "
-                             f"every stream in one process; {mesh.world} ranks hold "
-                             f"{s_streams} streams each: run the mosaic on one card")
-        annot = MosaicAnnotator(vcfg, names, s_streams) if render_on else None
+        lead = mesh.rank == 0
+        display = display and lead
+        annot = (MosaicAnnotator(vcfg, names, self.num_streams, range(off, off + s_streams))
+                 if render_on else None)
         monitor = None
-        if vcfg.mjpeg_port is not None:
+        if vcfg.mjpeg_port is not None and lead:
             from rtmodt_tpu_torch.serving.monitor import LiveMonitor
 
             monitor = LiveMonitor(vcfg.mjpeg_port)
@@ -487,14 +514,15 @@ class MultiStreamPipeline:
 
         inflight: deque = deque()
         frames_done = n_chunks = 0
+        frames_all = 0       # every rank's real frames: the mosaic's aggregate fps
+        quit_asked = False   # the display window's 'q' (rank 0); every rank stops on it
         src_hw = None
         t_start = None
 
-        def consume(entry) -> bool:
-            """Host half of one chunk: events and the mosaic.  False when the
-            display window asks to quit."""
-            nonlocal frames_done, writer
-            metas, outs, n_real, bgrs = entry
+        def consume(entry) -> None:
+            """Host half of one chunk: events and the mosaic."""
+            nonlocal frames_done, frames_all, writer, quit_asked
+            metas, outs, n_real, n_all, bgrs, live = entry
             host = TrackOutputs(*(x.cpu().numpy() for x in outs))
             if engines is not None:
                 for si in range(s_streams):
@@ -503,16 +531,23 @@ class MultiStreamPipeline:
                         host.visible[:, si], [m[si][0] for m in metas],
                         np.asarray([m[si][1] for m in metas], np.float64), class_names=names)
             frames_done += n_real
+            frames_all += n_all
             if annot is None:
-                return True
+                return
             import cv2
 
+            # rows with no real frame on any rank (the last chunk's tail) are
+            # not drawn
+            shape = (*src_hw, 3)
+            tiles = [annot.tiles(host, t, row, render_zones, shape)
+                     for t, row in enumerate(bgrs) if live[t]]
+            parts = gather_objects(tiles, mesh)   # rank order is stream order
+            if parts is None or quit_asked:
+                return
             elapsed = (time.perf_counter() - t_start) if t_start else 0.0
-            fps_now = frames_done / elapsed if elapsed > 0 else 0.0
-            for t, row in enumerate(bgrs):
-                if all(f is None for f in row):
-                    continue   # trailing all-blank rows of the last chunk
-                grid = annot.mosaic(host, t, row, render_zones, fps_now)
+            fps_now = frames_all / elapsed if elapsed > 0 else 0.0
+            for t in range(len(tiles)):
+                grid = annot.grid([tile for part in parts for tile in part[t]], fps_now)
                 if monitor is not None:
                     monitor.publish(grid)
                 if vcfg.save_video:
@@ -526,8 +561,8 @@ class MultiStreamPipeline:
                 if display:
                     cv2.imshow(vcfg.window_name, grid)
                     if cv2.waitKey(1) & 0xFF == ord("q"):
-                        return False
-            return True
+                        quit_asked = True
+                        return
 
         # per-stream (fid, ts), continued by blanks; per_stream_frames counts
         # across restarts, so the next snapshot's fast-forward covers them all
@@ -539,12 +574,9 @@ class MultiStreamPipeline:
         last_snap = all_frames
         aborted = False
 
-        def drain() -> bool:
+        def drain() -> None:
             while inflight:
-                if not consume(inflight.popleft()):
-                    inflight.clear()
-                    return False
-            return True
+                consume(inflight.popleft())
 
         def snapshot() -> None:
             from rtmodt_tpu_torch.runtime.state_store import save_multistream_snapshot
@@ -578,8 +610,14 @@ class MultiStreamPipeline:
                 # streams blanks meanwhile, as one process does; a rank whose
                 # streams gave no frame yet takes the others' resolution
                 own = src_hw or (next(b for b in block if b)[0][1] if n_real else None)
-                n_all, known, h_sum, w_sum = sum_ints(
-                    [n_real, own is not None, *(own or (0, 0))], mesh)
+                rows = ([any(len(b) > t for b in block) for t in range(t_chunk)]
+                        if render_on else [])
+                n_all, known, h_sum, w_sum, quit_all, *live = sum_ints(
+                    [n_real, own is not None, *(own or (0, 0)), quit_asked, *rows], mesh)
+                if quit_all:     # the display window asked to quit
+                    inflight.clear()
+                    aborted = True
+                    break
                 if n_all == 0:   # every stream is done
                     break
                 all_frames += n_all
@@ -618,23 +656,23 @@ class MultiStreamPipeline:
                     metas.append(row)
                     bgrs.append(brow)
                 outs, _ = self.submit_chunk_packed((y, u, v), *src_hw)
-                inflight.append((metas, outs, n_real, bgrs))
+                inflight.append((metas, outs, n_real, n_all, bgrs, [n > 0 for n in live]))
                 n_chunks += 1
                 if t_start is None:
                     t_start = time.perf_counter()
-                if len(inflight) > depth and not consume(inflight.popleft()):
-                    inflight.clear()
-                    aborted = True
-                    break
+                if len(inflight) > depth:
+                    consume(inflight.popleft())
                 if state_path and all_frames - last_snap >= state_interval:
                     # drain first: the tracker state (updated at submit) and the
                     # engines (updated at consume) must describe the same frames
-                    if not drain():
-                        aborted = True
-                        break
+                    drain()
                     snapshot()
                     last_snap = all_frames
-            aborted = not drain() or aborted
+            drain()
+            # a quit asked while the last chunks drained skips the clean-exit
+            # snapshot on every rank
+            quit_all = sum_ints([quit_asked], mesh)[0]
+            aborted = aborted or quit_all > 0
             if state_path and not aborted and t_start is not None:
                 snapshot()   # the clean-exit snapshot covers the whole run
         finally:

@@ -50,10 +50,11 @@ def nms_case(name: str, seed: int, b: int = 16, k: int = 300):
 NAMES = ("random", "ties", "zero_score", "class_offset", "holes", "identical",
          "no_valid", "one_valid", "degenerate")
 # (name, seed, B, K, threshold): every case at the main path's shapes, then
-# the kernel's edges (K across the 32-row blocks up to the kernel's 1024, one
+# the one-CTA kernel's edges (K across the 32-row blocks up to its 1024, one
 # frame and 64 frames), then thresholds where the kernel's zero-overlap
 # decision, made without the divide, differs from 'no conflict' (t < 0) or
-# makes any overlap one (t = 0)
+# makes any overlap one (t = 0), then the wide path (K > 1024: every anchor
+# of a 640 input is 8400)
 KERNEL_CASES = ([(name, seed, 16, 300, 0.45) for name in NAMES for seed in (0, 1)]
                 + [("holes", k, 16, k, 0.45) for k in (1, 33, 65, 300, 1024)]
                 + [(name, k, b, k, 0.45) for name, b, k in (
@@ -61,7 +62,14 @@ KERNEL_CASES = ([(name, seed, 16, 300, 0.45) for name in NAMES for seed in (0, 1
                     ("random", 64, 300), ("holes", 64, 300), ("identical", 1, 1024),
                     ("no_valid", 1, 33), ("one_valid", 16, 1024))]
                 + [(name, 5, 16, 300, t) for name in ("random", "degenerate")
-                   for t in (-0.1, 0.0, 0.9999)])
+                   for t in (-0.1, 0.0, 0.9999)]
+                + [(name, k, b, k, 0.45) for name, b, k in (
+                    ("random", 1, 1025), ("holes", 1, 1025), ("identical", 1, 1025),
+                    ("random", 16, 2048), ("holes", 16, 2048), ("one_valid", 16, 2048),
+                    ("random", 2, 8400), ("class_offset", 2, 8400))])
+# K from which the plain version runs on the card: its (B, K, K) conflict
+# matrix and fixpoint rounds take seconds on the host there
+PLAIN_ON_CARD_K = 8400
 
 
 @pytest.fixture
@@ -85,7 +93,9 @@ def test_cpu_tensors_take_the_plain_version(name):
 @pytest.mark.parametrize("name,seed,b,k,t", KERNEL_CASES)
 def test_nms_kernel_matches_plain_version(cuda_device, name, seed, b, k, t):
     boxes, scores = nms_case(name, seed, b=b, k=k)
-    want = nms_kernel.greedy_suppress_reference(boxes, scores, t)
+    plain_dev = cuda_device if k >= PLAIN_ON_CARD_K else torch.device("cpu")
+    want = nms_kernel.greedy_suppress_reference(boxes.to(plain_dev), scores.to(plain_dev),
+                                                t).cpu()
     before = nms_kernel.launches
     got = nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), t)
     torch.cuda.synchronize()
@@ -95,9 +105,10 @@ def test_nms_kernel_matches_plain_version(cuda_device, name, seed, b, k, t):
 
 @pytest.mark.cuda
 def test_nms_kernel_rejects_what_it_does_not_take(cuda_device):
+    # K = 2048 is past the one-CTA kernel's 1024: the wide path takes it
     boxes, scores = nms_case("random", 2, b=1, k=2048)
-    with pytest.raises(ValueError):
-        nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), 0.45)
+    got = nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), 0.45)
+    assert torch.equal(got.cpu(), nms_kernel.greedy_suppress_reference(boxes, scores, 0.45))
     with pytest.raises(ValueError):
         nms_kernel.greedy_suppress(boxes.to(cuda_device)[:, ::2], scores.to(cuda_device)[:, ::2].contiguous(), 0.45)
     boxes, scores = nms_case("random", 2, b=1, k=300)

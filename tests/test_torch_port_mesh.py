@@ -24,7 +24,9 @@ from tests.test_torch_port_threads import torch_threads  # noqa: F401 (autouse)
 def test_create_mesh_defaults_and_errors(monkeypatch):
     monkeypatch.delenv(M.ENV_DEVICES, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    m = M.create_mesh()                      # no card here: the CPU, as jax.devices()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.create_mesh()                      # no card and none named: no CPU mesh
+    m = M.create_mesh(devices=["cpu"])
     assert m.devices == (torch.device("cpu"),) and m.world == 1 and m.rank == 0
     assert m.axis == "data" and not m.distributed and m.device == torch.device("cpu")
     four = M.create_mesh(devices=["cpu"] * 4)
@@ -37,6 +39,26 @@ def test_create_mesh_defaults_and_errors(monkeypatch):
     with pytest.raises(ValueError, match="unsupported mesh device"):
         M.create_mesh(devices=["meta"])
     assert M.create_mesh(devices=["cuda"]).devices == (torch.device("cuda", 0),)
+
+
+def test_no_card_gives_no_cpu_mesh_unless_named(monkeypatch):
+    """Where no card is visible, the default devices raise as
+    ``resolve_device`` does; the CPU is a mesh device only where it is named
+    (``devices=``, ``RTMODT_MESH_DEVICES``, the dry run's ``--devices``)."""
+    from tools import dryrun_multichip_torch
+
+    monkeypatch.delenv(M.ENV_DEVICES, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (M.visible_devices, M.create_mesh, lambda: M.create_mesh(2),
+                 M.create_hybrid_mesh):
+        with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
+            make()
+    with pytest.raises(SystemExit, match="dryrun_multichip_torch: .*CUDA is not available"):
+        dryrun_multichip_torch.main([])
+    assert M.create_mesh(devices=["cpu", "cpu"]).devices == (torch.device("cpu"),) * 2
+    monkeypatch.setenv(M.ENV_DEVICES, "cpu,cpu")
+    named = M.create_mesh()
+    assert named.devices == (torch.device("cpu"),) * 2 and not named.distributed
 
 
 def test_backend_is_nccl_only_where_every_rank_has_its_own_card():

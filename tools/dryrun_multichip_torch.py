@@ -19,6 +19,9 @@ Each part prints the reference's "OK" line.  ``--devices`` lists the
 mesh's devices (the counterpart of the reference's virtual device count):
 ``cpu,cpu,cpu,cpu`` runs four CPU ranks over gloo, ``cuda:0,cuda:0`` two
 ranks sharing one card over gloo, ``cuda:0,cuda:1`` two cards over NCCL.
+Without ``--devices`` (or ``RTMODT_MESH_DEVICES``) it takes every visible
+card, and where there is none it exits with an error: the CPU runs only
+where it is named.
 
     python tools/dryrun_multichip_torch.py 4 --devices cpu,cpu,cpu,cpu
     python tools/dryrun_multichip_torch.py --devices cuda:0,cuda:0
@@ -173,7 +176,7 @@ def main(argv: list[str] | None = None) -> int:
     devices = a.devices.split(",") if a.devices else None
     try:
         mesh = create_mesh(a.num_devices, devices=devices)
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:    # RuntimeError: no card, none named
         raise SystemExit(f"dryrun_multichip_torch: {e}")
     dryrun_multichip(mesh)
     return 0

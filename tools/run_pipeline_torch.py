@@ -12,10 +12,12 @@ counts.  Several ``-s`` set ``parallel.num_streams`` and run
 summary: on several visible cards whose count divides the streams, one rank
 per card (``parallel/mesh.py``'s ``spawn``), each running its share of the
 streams, as the reference's CLI shards them over its devices; on one card
-(or the CPU) in this process.  ``--display``, ``--save-video`` and
-``--mjpeg-port`` tile every annotated stream into one mosaic, which one
-process draws: over several cards they are refused (restrict the cards with
-``CUDA_VISIBLE_DEVICES``).  ``--mjpeg-port N`` serves the annotated frames
+(or the CPU) in this process.  ``RTMODT_MESH_DEVICES`` names the ranks'
+devices instead (``cuda:0,cuda:0``: two ranks sharing one card; ``cpu,cpu``:
+two CPU ranks).  ``--display``, ``--save-video`` and ``--mjpeg-port`` tile
+every annotated stream into one mosaic: over several ranks each rank draws
+its streams' tiles and rank 0 tiles them, writes the video, serves the
+monitor and shows the window.  ``--mjpeg-port N`` serves the annotated frames
 (the mosaic with several ``-s``) as MJPEG on port N while the run lasts
 (``http://host:N/``; 0 picks a free port, which the log names).
 It logs to stderr at ``system.log_level`` and to
@@ -123,20 +125,17 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _run_ranks(cfg, args: argparse.Namespace, devices: list[str]) -> dict:
-    """The multi-camera run over one rank per card; rank 0's summary."""
+    """The multi-camera run over one rank per device; rank 0's summary (and
+    the mosaic, where one is asked for)."""
     from rtmodt_tpu_torch.parallel.mesh import create_mesh, spawn
     from rtmodt_tpu_torch.parallel.ranks import multistream_run
 
-    vcfg = cfg.visualization
-    if args.display or vcfg.save_video or vcfg.mjpeg_port is not None:
-        raise SystemExit(f"run_pipeline_torch: the mosaic (--display, --save-video, "
-                         f"--mjpeg-port) is drawn by one process; {len(args.source)} streams "
-                         f"run over {len(devices)} cards here: choose one card with "
-                         "CUDA_VISIBLE_DEVICES")
-    logger.info(f"{len(args.source)} streams over {len(devices)} cards, one rank each")
+    logger.info(f"{len(args.source)} streams over {len(devices)} devices "
+                f"({','.join(devices)}), one rank each")
     out = spawn(multistream_run, create_mesh(devices=devices), cfg, list(args.source),
-                {"max_frames": args.max_frames, "state_path": args.state_path,
-                 "state_interval": args.state_interval})
+                {"max_frames": args.max_frames, "display": args.display,
+                 "state_path": args.state_path, "state_interval": args.state_interval})
+    logger.info(f"ranks done: NMS kernel launches by rank {[r['launches'] for r in out]}")
     return out[0]["summary"]
 
 
