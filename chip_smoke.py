@@ -187,6 +187,8 @@ import time
 import numpy as np
 import torch
 
+from tools.nms_kernel_times_torch import WIDE_EDGE_CASES, WIDE_EDGE_K, trace_by_kernel
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "checkpoints", "rich640d", "ema_final.npz")
 OUT_DIR = os.path.join(ROOT, "build", "smoke")
@@ -204,7 +206,11 @@ WIDE_CASES = ([(name, b, k) for name in ("random", "holes", "identical", "one_va
                for k in (1025, 2048) for b in (1, 16)]
               + [(name, b, k) for name in ("random", "holes", "identical", "one_valid")
                  for b, k in ((2, 8400), (1, 33600))])
-WIDE_TIMED = {1025: 16, 2048: 16, 8400: 2, 33600: 1}   # K -> B of the timed random case
+# the timed random cases, label -> (K, B); K = 1025 at B = 1 sits beside the
+# one-CTA kernel's K = 1000, B = 1 (training validation, offline detection)
+WIDE_TIMED = {"k1025": (1025, 16), "k2048": (2048, 16), "k8400": (8400, 2),
+              "k33600": (33600, 1), "k1025_b1": (1025, 1)}
+WIDE_KERNELS = ("nms_wide_compact", "nms_wide_conflicts", "nms_wide_scan")
 PLAIN_ON_CARD_K = 8400  # from this K the plain version runs on the card (seconds on the host)
 WIDE_CANDIDATES = 2048  # phase 5's chunk through K1's wide path
 ONE_CTA_MAX_K = 1024
@@ -354,13 +360,10 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, name: str | None = None, per_call: int = 1) -> float | None:
+def device_ms(fn, iters: int) -> float | None:
     """Device time per call of fn(), from torch.profiler's CUDA trace: the
     self device time of every kernel and copy it ran, summed, over ``iters``
-    calls.  With ``name``, fn() launches ``per_call`` kernels whose names hold
-    it, and the time is their sum's mean over the calls the trace holds (a
-    trace that lost some would otherwise read low); a count other than
-    ``iters * per_call`` is printed.  None when the trace holds none."""
+    calls.  None when the trace holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -369,20 +372,10 @@ def device_ms(fn, iters: int, name: str | None = None, per_call: int = 1) -> flo
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name is None or name in evt.key:
-            total_us += getattr(evt, "self_device_time_total",
-                                getattr(evt, "self_cuda_time_total", 0.0))
-            count += evt.count
-    if total_us <= 0:
-        return None
-    if name is None:
-        return total_us / iters / 1e3
-    if count != iters * per_call:
-        print(f"  profiler trace holds {count} launches of {name} for {iters} calls",
-              flush=True)
-    return total_us / count * per_call / 1e3
+    total_us = sum(getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0))
+                   for evt in prof.key_averages())
+    return total_us / iters / 1e3 if total_us > 0 else None
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -426,16 +419,18 @@ def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]
 def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str,
              plain_iters: int = 20, iters: int = 100) -> dict:
     """K1's time on these candidates (profiler trace and CUDA graph of
-    ``iters`` launches, per launch; the wide path's three kernels summed),
-    its plain version's and its bound, printed under ``label``."""
+    ``iters`` launches, per launch; the wide path's three kernels timed
+    apart, with the launches the trace holds, and summed), its plain
+    version's and its bound, printed under ``label``."""
     from rtmodt_tpu_torch.ops import nms_kernel
 
-    wide = scores.shape[1] > ONE_CTA_MAX_K
+    names = WIDE_KERNELS if scores.shape[1] > ONE_CTA_MAX_K else ("nms_greedy_kernel",)
     launch = lambda: nms_kernel.greedy_suppress(boxes, scores, iou)  # noqa: E731
     plain = lambda: nms_kernel.greedy_suppress_reference(boxes, scores, iou)  # noqa: E731
-    t = {"trace_ms": device_ms(launch, iters=iters,
-                               name="nms_wide" if wide else "nms_greedy_kernel",
-                               per_call=3 if wide else 1),
+    kernels = trace_by_kernel(launch, iters, names)
+    t = {"trace_ms": (sum(r["ms"] for r in kernels.values())
+                      if len(kernels) == len(names) else None),
+         "kernels": kernels,
          "graph_ms": graph_ms(launch, iters=iters),
          "plain_ms": cuda_time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters)),
          "bound": nms_bound_ms(boxes, scores), "valid": int((scores > 0).sum())}
@@ -443,10 +438,14 @@ def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str,
           + ("not measured" if t["trace_ms"] is None else f"{t['trace_ms']:.5f} ms")
           + f" per launch (profiler trace); CUDA graph {t['graph_ms']:.5f} ms; plain version "
           f"{t['plain_ms']:.4f} ms; bound {t['bound'][0]:.3e} ms ({t['bound'][1]})", flush=True)
+    if len(names) > 1 or any(r["launches"] != iters for r in kernels.values()):
+        print("    by kernel: " + "; ".join(
+            f"{n} {r['ms']:.5f} ms ({r['launches']} of {iters} launches in the trace)"
+            for n, r in kernels.items()), flush=True)
     return t
 
 
-def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
+def synthetic_case(name: str, gen: torch.Generator, b: int, k: int, valid: int | None = None):
     xy = torch.rand(b, k, 2, generator=gen) * 560
     wh = torch.rand(b, k, 2, generator=gen) * 152 + 8
     boxes = torch.cat([xy, xy + wh], dim=-1)
@@ -473,6 +472,17 @@ def synthetic_case(name: str, gen: torch.Generator, b: int, k: int):
         from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET
 
         boxes = boxes + torch.randint(0, 8, (b, k, 1), generator=gen).float() * CLASS_OFFSET
+    elif name == "disjoint":        # 10 px boxes on a 16 px grid: no pair overlaps
+        cell = torch.arange(k)
+        xy = torch.stack([cell % 64, cell // 64], dim=-1).float() * 16.0
+        boxes[:] = torch.cat([xy, xy + 10.0], dim=-1)
+    elif name == "one_late":        # the only valid row is the frame's last
+        scores[:, :-1] = 0.0
+    elif name == "chain":           # each box overlaps the next (IoU 7/13), not the one after
+        x = (torch.arange(k) % 200) * 3.0 + (torch.arange(k) // 200) * 1000.0
+        boxes[:] = torch.stack([x, 0 * x, x + 10.0, 0 * x + 10.0], dim=-1)
+    if valid is not None:
+        scores[:, valid:] = 0.0
     return boxes.contiguous(), scores.contiguous()
 
 
@@ -4115,12 +4125,32 @@ def main() -> int:
         if diff or calls != 1:
             fail(f"NMS kernel's wide path: {diff} mismatches, {calls} launches "
                  f"({name}, B={b}, K={k})")
+    # the scan tile's boundaries (plain version on the card: same bits, seconds sooner)
+    for name, valid, t in WIDE_EDGE_CASES:
+        for b in (1, 16):
+            boxes, scores = synthetic_case(name, wgen, b, WIDE_EDGE_K, valid)
+            want = nms_kernel.greedy_suppress_reference(boxes.to(dev), scores.to(dev), t).cpu()
+            before = nms_kernel.launches
+            got = nms_kernel.greedy_suppress(boxes.to(dev), scores.to(dev), t)
+            torch.cuda.synchronize()
+            diff, calls = int((got.cpu() != want).sum()), nms_kernel.launches - before
+            kept = want.sum(dim=1)
+            print(f"  tile edge {name} v={valid or WIDE_EDGE_K} B={b} K={WIDE_EDGE_K} t={t}: "
+                  f"kept {int(kept.sum())}/{want.numel()}, mismatches {diff}, launches {calls}",
+                  flush=True)
+            wrong = ((name == "identical" and kept.tolist() != [1] * b)
+                     or (name == "disjoint" and not torch.equal(want, scores > 0))
+                     or (name == "chain" and not torch.equal(
+                         want, (scores > 0) & (torch.arange(WIDE_EDGE_K) % 200 % 2 == 0))))
+            if diff or calls != 1 or wrong:
+                fail(f"NMS kernel's wide path at a scan tile edge: {diff} mismatches, {calls} "
+                     f"launches, scene as built {not wrong} ({name}, v={valid}, B={b}, t={t})")
     wide_k1 = {}
-    for k, b in WIDE_TIMED.items():
+    for key, (k, b) in WIDE_TIMED.items():
         boxes, scores = synthetic_case("random", wgen, b, k)
         big = k >= PLAIN_ON_CARD_K      # a millisecond or more a launch
-        wide_k1[k] = k1_times(boxes.to(dev), scores.to(dev), 0.45, f"K={k}, B={b} (random)",
-                              plain_iters=2 if big else 5, iters=20 if big else 100)
+        wide_k1[key] = k1_times(boxes.to(dev), scores.to(dev), 0.45, f"K={k}, B={b} (random)",
+                                plain_iters=2 if big else 5, iters=20 if big else 100)
     print(f"  the wide path's cases and times took {time.perf_counter() - t3:.1f} s", flush=True)
 
     phase("4/14 rich640d weights: bf16 channels_last vs float32 (TF32 off)")
@@ -4224,7 +4254,11 @@ def main() -> int:
     # graph of 100 launches as the cross-check); per Python call of the
     # wrapper it is bound by the host's issue rate instead
     launch = lambda: nms_kernel.greedy_suppress(off, cs, d.iou_threshold)  # noqa: E731
-    kernel_trace_ms = device_ms(launch, iters=100, name="nms_greedy_kernel")
+    traced = trace_by_kernel(launch, 100, ("nms_greedy_kernel",)).get("nms_greedy_kernel")
+    if traced is not None and traced["launches"] != 100:
+        print(f"  profiler trace holds {traced['launches']} launches of nms_greedy_kernel for "
+              "100 calls", flush=True)
+    kernel_trace_ms = None if traced is None else traced["ms"]
     kernel_graph_ms = graph_ms(launch, iters=100)
     kernel_call_ms = cuda_time_ms(launch, iters=200, warmup=10)
     kernel_ms = kernel_trace_ms if kernel_trace_ms is not None else kernel_graph_ms
@@ -4239,8 +4273,9 @@ def main() -> int:
         "one frame": (off[:1].contiguous(), cs[:1].contiguous()),
         "K=1024 all valid": (big_boxes.to(dev), big_scores.to(dev)),
     }
-    variant_ms = {label: (device_ms(lambda bx=bx, sc=sc: nms_kernel.greedy_suppress(
-        bx, sc, d.iou_threshold), iters=50, name="nms_greedy_kernel"), nms_bound_ms(bx, sc))
+    variant_ms = {label: ((trace_by_kernel(lambda bx=bx, sc=sc: nms_kernel.greedy_suppress(
+        bx, sc, d.iou_threshold), 50, ("nms_greedy_kernel",)).get("nms_greedy_kernel")
+        or {}).get("ms"), nms_bound_ms(bx, sc))
         for label, (bx, sc) in variants.items()}
     # the NMS stage's device time split: decode (top-k + DFL) and
     # suppress-and-pack (class offset + K1 + max_det pack)
@@ -4440,10 +4475,12 @@ def main() -> int:
                           ("b1_detect", serving["b1_detect"]),     # phase 9 (g), K = 1000
                           ("dense64", tools["dense_k1"]),          # phase 12 (d), K = 512
                           ("b1_train_val", training["val_k1"]))},  # phase 13 (b), K = 1000
-        # the wide path on random candidates (phase 3), B = WIDE_TIMED[K]
-        **{f"k{k}": {"ms": t["trace_ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
-                     "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "b": WIDE_TIMED[k]}
-           for k, t in wide_k1.items()},
+        # the wide path on random candidates (phase 3), (K, B) = WIDE_TIMED[key],
+        # its three kernels apart with the launches each trace holds
+        **{key: {"ms": t["trace_ms"], "graph_ms": t["graph_ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                 "k": WIDE_TIMED[key][0], "b": WIDE_TIMED[key][1], "kernels": t["kernels"]}
+           for key, t in wide_k1.items()},
     }]
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,11 +19,23 @@ block's removed word walks the block in registers and the other lanes take
 the kept rows' words in parallel.  For K > 1024 (``nms_candidates`` up to
 every anchor) the same three steps run as three kernels over a scratch
 buffer that this wrapper allocates (``nms_scratch_bytes``: the compact rows
-and B x K x ceil(K/32) u32 conflict words, 8.8 MB a frame at K = 8400): the
-compaction loops over 1024-row tiles, the conflict words are built by one
-block per 32 rows of a frame, and the scan keeps the removed words in
-shared memory, each owned by one of the CTA's threads.  Either path is one
-call of ``nms_greedy_launch`` and counts one launch.
+and B x K x round4(ceil(K/32)) u32 conflict words, rows padded to 16 bytes;
+9.07 MB a frame at K = 8400, 142.2 MB at 33600).  The compaction loops over
+1024-row tiles.  The conflict words are built over the (32 compact rows,
+512-column tile) pairs of the upper triangle by a grid of at most
+``ceil(4096 / B)`` blocks a frame, each looping over the pairs of the column
+tiles that hold the frame's valid rows (so few valid rows cost few pairs
+whatever K is); a block stages a pair's columns in shared memory once and
+stores each row's words with coalesced stores.
+The scan walks the compact rows in tiles of 512: each tile's diagonal block
+of words (32 KB) is copied into a shared double buffer two tiles ahead; one
+warp scans the tile on shared memory and registers, 32 rows at a time
+(each block's keep mask is the fixpoint of a warp OR-reduction, reached
+in at most 33 rounds), with no block-wide barrier inside the tile;
+then every thread ORs the tile's kept rows' words into the next tile's
+removed words, one barrier pair a tile, and the other warps OR them into the
+words past it while warp 0 scans the next tile.  Either path is one call of
+``nms_greedy_launch`` and counts one launch.
 
 ``greedy_suppress`` launches the kernel for CUDA tensors (or raises) and uses
 the plain version only for tensors on the CPU.

@@ -15,10 +15,12 @@ import torch
 
 from rtmodt_tpu_torch.ops import nms_kernel
 from rtmodt_tpu_torch.ops.nms import CLASS_OFFSET
+from tools.nms_kernel_times_torch import WIDE_EDGE_CASES, WIDE_EDGE_K
 
 
-def nms_case(name: str, seed: int, b: int = 16, k: int = 300):
-    """B frames of K score-sorted candidates: boxes (B, K, 4), scores (B, K)."""
+def nms_case(name: str, seed: int, b: int = 16, k: int = 300, valid: int | None = None):
+    """B frames of K score-sorted candidates: boxes (B, K, 4), scores (B, K);
+    with ``valid``, only the first ``valid`` rows of a frame score above 0."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(0, 560, (b, k, 2))
     wh = rng.uniform(8, 160, (b, k, 2))
@@ -44,11 +46,22 @@ def nms_case(name: str, seed: int, b: int = 16, k: int = 300):
     elif name == "degenerate":      # zero-width and inverted boxes: zero or negative areas
         boxes[:, 0::3, 2] = boxes[:, 0::3, 0]
         boxes[:, 1::3, 0], boxes[:, 1::3, 2] = boxes[:, 1::3, 2].copy(), boxes[:, 1::3, 0].copy()
+    elif name == "disjoint":        # 10 px boxes on a 16 px grid: no pair overlaps
+        cell = np.arange(k)
+        xy = np.stack([cell % 64, cell // 64], axis=-1) * 16.0
+        boxes[:] = np.concatenate([xy, xy + 10.0], axis=-1).astype(np.float32)
+    elif name == "one_late":        # the only valid row is the frame's last
+        scores[:, :-1] = 0.0
+    elif name == "chain":           # each box overlaps the next (IoU 7/13), not the one after
+        x = (np.arange(k) % 200) * 3.0 + (np.arange(k) // 200) * 1000.0
+        boxes[:] = np.stack([x, 0 * x, x + 10.0, 0 * x + 10.0], axis=-1).astype(np.float32)
+    if valid is not None:
+        scores[:, valid:] = 0.0
     return torch.from_numpy(boxes), torch.from_numpy(scores)
 
 
 NAMES = ("random", "ties", "zero_score", "class_offset", "holes", "identical",
-         "no_valid", "one_valid", "degenerate")
+         "no_valid", "one_valid", "degenerate", "disjoint", "one_late", "chain")
 # (name, seed, B, K, threshold): every case at the main path's shapes, then
 # the one-CTA kernel's edges (K across the 32-row blocks up to its 1024, one
 # frame and 64 frames), then thresholds where the kernel's zero-overlap
@@ -101,6 +114,26 @@ def test_nms_kernel_matches_plain_version(cuda_device, name, seed, b, k, t):
     torch.cuda.synchronize()
     assert nms_kernel.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("name,valid,t", WIDE_EDGE_CASES)
+def test_nms_kernel_wide_tile_boundaries(cuda_device, name, valid, t, b):
+    boxes, scores = nms_case(name, 11, b=b, k=WIDE_EDGE_K, valid=valid)
+    want = nms_kernel.greedy_suppress_reference(boxes.to(cuda_device), scores.to(cuda_device),
+                                                t).cpu()
+    before = nms_kernel.launches
+    got = nms_kernel.greedy_suppress(boxes.to(cuda_device), scores.to(cuda_device), t)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    if name == "identical":
+        assert want.sum(dim=1).tolist() == [1] * b
+    if name == "disjoint" and t >= 0:
+        assert torch.equal(want, scores > 0)
+    if name == "chain":             # every other box of a chain survives
+        assert torch.equal(want, (scores > 0) & (torch.arange(WIDE_EDGE_K) % 200 % 2 == 0))
 
 
 @pytest.mark.cuda
