@@ -22,6 +22,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from rtmodt_tpu_torch.config.loader import AlertConfig, EventsConfig, ZoneConfig
+from rtmodt_tpu_torch.profiling.spans import span
 from rtmodt_tpu_torch.utils.logging import logger
 
 
@@ -567,19 +568,22 @@ class ZoneEventEngine:
         )
 
     def _emit(self, evt: ZoneEvent) -> None:
-        backend = self.alert.backend
-        with open(self.log_path, "a") as f:
-            f.write(evt.to_json() + "\n")
-        if backend == "webhook" and self.alert.webhook_url:
-            self._post_webhook(evt)
-        elif backend == "mqtt" and self.alert.mqtt_host:
-            if self._mqtt is None:
-                from rtmodt_tpu_torch.events.mqtt import MQTTPublisher
+        """One event's alert: the JSONL append, the webhook or MQTT message
+        and the log line (the ``emit`` span)."""
+        with span("emit"):
+            backend = self.alert.backend
+            with open(self.log_path, "a") as f:
+                f.write(evt.to_json() + "\n")
+            if backend == "webhook" and self.alert.webhook_url:
+                self._post_webhook(evt)
+            elif backend == "mqtt" and self.alert.mqtt_host:
+                if self._mqtt is None:
+                    from rtmodt_tpu_torch.events.mqtt import MQTTPublisher
 
-                self._mqtt = MQTTPublisher(self.alert.mqtt_host, self.alert.mqtt_port)
-            self._mqtt.publish(self.alert.mqtt_topic, evt.to_json())
-        logger.info(f"EVENT | {evt.event_type} | zone={evt.zone_name} "
-                    f"track={evt.track_id} dwell={evt.dwell_time_sec:.1f}s")
+                    self._mqtt = MQTTPublisher(self.alert.mqtt_host, self.alert.mqtt_port)
+                self._mqtt.publish(self.alert.mqtt_topic, evt.to_json())
+            logger.info(f"EVENT | {evt.event_type} | zone={evt.zone_name} "
+                        f"track={evt.track_id} dwell={evt.dwell_time_sec:.1f}s")
 
     def _post_webhook(self, evt: ZoneEvent) -> None:
         import urllib.request

@@ -10,9 +10,9 @@ Loop form: the reference's data-dependent ``lax.while_loop`` becomes a Python
 loop bounded at ``min(R, C)`` rounds whose condition (any entry still >=
 threshold) is read on the host once per round, for one matrix or for a
 stream axis of them (the reference ``vmap``s its loop over streams).  On the card that read is one
-device -> host sync per round; fixed ``min(R, C)`` rounds would instead
-launch ~100 rounds of kernels per association at the default 256 slots x 100
-detections.
+device -> host sync per round, the ``sync`` span of ``profiling/spans.py``;
+fixed ``min(R, C)`` rounds would instead launch ~100 rounds of kernels per
+association at the default 256 slots x 100 detections.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from rtmodt_tpu_torch.profiling.spans import span
 
 NEG = -1e9
 
@@ -62,7 +64,11 @@ def greedy_assign(similarity: torch.Tensor, threshold: float,
     if r and c:
         rows = torch.arange(r, dtype=torch.int32, device=dev).expand(s, r)
         sink = torch.full((s, 1), -1, dtype=torch.int32, device=dev)
-        while rounds < min(r, c) and bool(sim.max() >= thr):
+        while rounds < min(r, c):
+            with span("sync"):
+                more = bool(sim.max() >= thr)
+            if not more:
+                break
             row_val, row_best = sim.max(dim=2)
             col_best = sim.argmax(dim=1)
             mutual = (col_best.gather(1, row_best) == rows) & (row_val >= thr)

@@ -90,6 +90,7 @@ from rtmodt_tpu_torch.ops.yuv import (check_prepacked, content_dims, pack_chunk,
                                       s2d_to_planes,
                                       unletterbox_boxes_packed)
 from rtmodt_tpu_torch.profiling.latency_profiler import LatencyProfiler
+from rtmodt_tpu_torch.profiling.spans import span
 from rtmodt_tpu_torch.profiling.trace_summary import start_trace, stop_trace
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
@@ -275,14 +276,15 @@ class Pipeline:
         """GMC (with the frames' luma ``grids``, or any luma source
         ``gmc_step`` takes) and the tracker over the K frames in order;
         outputs stacked (K, S, ...).  The tracker state may carry a stream
-        axis (``parallel/multistream.py``)."""
-        outs = []
-        for i in range(res.boxes.shape[0]):
-            if grids is not None:
-                self._gmc(grids[i], scale_xy)
-            outs.append(self.tracker.step(res.boxes[i], res.scores[i], res.classes[i],
-                                          res.valid[i], None if feats is None else feats[i]))
-        return TrackOutputs(*(torch.stack(f) for f in zip(*outs)))
+        axis (``parallel/multistream.py``).  The ``track`` span."""
+        with span("track"):
+            outs = []
+            for i in range(res.boxes.shape[0]):
+                if grids is not None:
+                    self._gmc(grids[i], scale_xy)
+                outs.append(self.tracker.step(res.boxes[i], res.scores[i], res.classes[i],
+                                              res.valid[i], None if feats is None else feats[i]))
+            return TrackOutputs(*(torch.stack(f) for f in zip(*outs)))
 
     def packed_detect(self, planes, src_h: int, src_w: int):
         """The per-frame half of the packed program, batched over the K
@@ -291,30 +293,32 @@ class Pipeline:
         GMC luma grids with their grid-to-source scale.  ``planes`` is (y, u,
         v), or one pre-packed x6 / x24 array that the device unpacks to them
         (``check_prepacked`` holds it to the transport's level first).
-        Returns (res, feats or None, grids or None, scale_xy)."""
-        size = self.cfg.detection.input_size
-        meta = packed_meta(src_h, src_w, size)
-        ch, cw = content_dims(src_h, src_w, size)
-        if isinstance(planes, (np.ndarray, torch.Tensor)):
-            check_prepacked(planes, self.cfg.parallel.transport, src_h, src_w, size,
-                            self._is_appearance)
-            planes = s2d_to_planes(torch.as_tensor(planes).to(self.device, non_blocking=True))
-        y, u, v = (torch.as_tensor(p).to(self.device, non_blocking=True) for p in planes)
-        if tuple(y.shape[1:]) != (ch, cw):
-            raise ValueError(f"Y planes are {tuple(y.shape[1:])}, expected {(ch, cw)} "
-                             f"for {src_w}x{src_h} input")
-        res = self.detect_chunk(y, u, v, meta, to_source=False)
-        feats = (self.embed_chunk(y, u, v, res.boxes, meta) if self._is_appearance
-                 else None)
-        res = res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
-        grids, scale = None, (1.0, 1.0)
-        if self._gmc_on:
-            # the content Y pooled to half resolution first, as the
-            # reference's packed programs do
-            g = self.cfg.tracking.gmc.grid
-            grids = luma_grids(half_res_luma(y), g)
-            scale = (src_w / g, src_h / g)
-        return res, feats, grids, scale
+        Returns (res, feats or None, grids or None, scale_xy).  The ``detect``
+        span."""
+        with span("detect"):
+            size = self.cfg.detection.input_size
+            meta = packed_meta(src_h, src_w, size)
+            ch, cw = content_dims(src_h, src_w, size)
+            if isinstance(planes, (np.ndarray, torch.Tensor)):
+                check_prepacked(planes, self.cfg.parallel.transport, src_h, src_w, size,
+                                self._is_appearance)
+                planes = s2d_to_planes(torch.as_tensor(planes).to(self.device, non_blocking=True))
+            y, u, v = (torch.as_tensor(p).to(self.device, non_blocking=True) for p in planes)
+            if tuple(y.shape[1:]) != (ch, cw):
+                raise ValueError(f"Y planes are {tuple(y.shape[1:])}, expected {(ch, cw)} "
+                                 f"for {src_w}x{src_h} input")
+            res = self.detect_chunk(y, u, v, meta, to_source=False)
+            feats = (self.embed_chunk(y, u, v, res.boxes, meta) if self._is_appearance
+                     else None)
+            res = res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
+            grids, scale = None, (1.0, 1.0)
+            if self._gmc_on:
+                # the content Y pooled to half resolution first, as the
+                # reference's packed programs do
+                g = self.cfg.tracking.gmc.grid
+                grids = luma_grids(half_res_luma(y), g)
+                scale = (src_w / g, src_h / g)
+            return res, feats, grids, scale
 
     def _packed_program(self, planes, src_h: int, src_w: int
                         ) -> tuple[TrackOutputs, NMSResult]:

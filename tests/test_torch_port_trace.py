@@ -4,8 +4,9 @@
 JAX pipeline's (both run unbound on a stub, their profilers patched to
 record the call index); a real CPU capture through ``run_chunked`` and the
 per-stage ``run`` writes one gzipped Chrome trace that
-``profiling/trace_summary.py`` reads; the reader sums only device events
-(kernels, copies, memsets) and reads the newest trace; the loader takes
+``profiling/trace_summary.py`` reads; the reader reads only device events
+(kernels, copies, memsets), takes the device's busy time as the union of
+their intervals and reads the newest trace; the loader takes
 ``trace_dir`` and ``trace_frames`` with the reference's default.
 """
 
@@ -196,7 +197,8 @@ def test_device_total_ms_reads_the_newest_trace(tmp_path):
     _write(str(tmp_path / "b" / "deep" / "host_2.2.pt.trace.json.gz"), _kineto_events())
     now = time.time()
     os.utime(tmp_path / "a" / "host_1.1.pt.trace.json.gz", (now - 60, now - 60))
-    assert trace_summary.device_total_ms(str(tmp_path)) == pytest.approx(0.442)
+    # the copy at 5-45 us overlaps the kernel at 20-270 us: 5-270 and 300-450 are busy
+    assert trace_summary.device_total_ms(str(tmp_path)) == pytest.approx(0.415)
     # a plain .trace.json is found too; no trace at all reads as nothing
     _write(str(tmp_path / "c" / "x.trace.json"), older, gz=False)
     assert trace_summary.device_total_ms(str(tmp_path)) == pytest.approx(5.0)
@@ -217,7 +219,24 @@ def test_device_total_ms_refuses_a_card_capture_without_device_events(tmp_path):
     _write(str(tmp_path / "t" / "host_2.2.pt.trace.json.gz"), _kineto_events())
     now = time.time()
     os.utime(tmp_path / "t" / "host_1.1.pt.trace.json.gz", (now - 60, now - 60))
-    assert trace_summary.device_total_ms(str(tmp_path / "t"), "cuda") == pytest.approx(0.442)
+    assert trace_summary.device_total_ms(str(tmp_path / "t"), "cuda") == pytest.approx(0.415)
+
+
+@pytest.mark.parametrize("events, busy_ms", [
+    # a copy inside a kernel counts once; one past its end adds its tail
+    ([("kernel", 0.0, 100.0), ("gpu_memcpy", 10.0, 20.0)], 0.1),
+    ([("kernel", 0.0, 100.0), ("gpu_memcpy", 80.0, 40.0)], 0.12),
+    # two kernels on two streams at once, a memset between, a gap after
+    ([("kernel", 0.0, 50.0), ("kernel", 25.0, 50.0), ("gpu_memset", 75.0, 5.0),
+      ("kernel", 200.0, 10.0)], 0.09),
+], ids=["inside", "past-the-end", "two-streams"])
+def test_device_total_ms_counts_overlapping_events_once(tmp_path, events, busy_ms):
+    trace = [{"ph": "X", "cat": cat, "name": f"{cat}{i}", "pid": 1, "tid": 7 + i, "ts": ts,
+              "dur": dur} for i, (cat, ts, dur) in enumerate(events)]
+    _write(str(tmp_path / "host_1.1.pt.trace.json.gz"), trace)
+    by_op, _ = trace_summary.device_op_times(trace)
+    assert trace_summary.device_total_ms(str(tmp_path), "cuda") == pytest.approx(busy_ms)
+    assert trace_summary.device_total_ms(str(tmp_path)) < sum(by_op.values())
 
 
 def test_loader_takes_trace_dir_and_the_reference_trace_frames(tmp_path):
