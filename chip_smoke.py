@@ -34,6 +34,12 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      then one chunk with ``detection.nms_candidates: 2048`` through
      ``submit_packed_yuv`` (K1's wide path, once): its detections equal to
      ``suppress_and_pack`` with the plain version on the same candidates;
+     then the tracker: the greedy-assignment kernel against its plain version
+     at the cells' shapes (S x 256 slots x 100 detections), its time, the
+     plain version's and the byte bound; ``run_chunked`` carried by the chunk
+     graph (one replay a chunk, no capture, no eager chunk, no wrapper
+     launch); one ``submit_chunk_packed`` chunk graphed and forced eager, bit
+     for bit;
   6. the live per-frame paths: ``Pipeline.run`` on a 25-fps 720p file (a)
      per stage, with the renderer and the annotated video saved, and (b) on
      the packed per-frame path with 2 frames in flight: K1's launches, the
@@ -414,6 +420,119 @@ def nms_bound_ms(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[float, str]
     ops = float((v * (v - 1) / 2 * 14 + 3 * v).sum())
     t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def assign_inputs(gen: np.random.Generator, s: int, r: int, c: int, kind: str):
+    """Inputs of one association at a cell's shape, (S, R slots, C detections)
+    on the CPU: ``tracker`` is an IoU-like matrix over ~10 % live slots and
+    ~15 % valid detections (sparse overlaps), ``dense`` every slot and
+    detection valid with uniform entries (many rounds)."""
+    if kind == "tracker":
+        sim = gen.uniform(0, 1, (s, r, c)) * (gen.uniform(size=(s, r, c)) < 0.05)
+        rv, cv = gen.uniform(size=(s, r)) < 0.1, gen.uniform(size=(s, c)) < 0.15
+    else:
+        sim = gen.uniform(0, 1, (s, r, c))
+        rv, cv = np.ones((s, r), bool), np.ones((s, c), bool)
+    return (torch.from_numpy(sim.astype(np.float32)), torch.from_numpy(rv),
+            torch.from_numpy(cv))
+
+
+def assign_bound_ms(s: int, r: int, c: int) -> float:
+    """Least time for greedy assignment of S (R, C) matrices on an H100: the
+    bytes of one read of the matrices (4 B an entry) and masks (1 B a row or
+    column) and one write of the outputs (4 B a row and a column); the
+    rounds' compares are a few operations an entry."""
+    return (4.0 * s * r * c + 5.0 * s * (r + c)) / HBM_RATE * 1e3
+
+
+def tracker_graph_checks(pipe, frames: np.ndarray) -> dict:
+    """Phase 5's tracker: (a) the greedy-assignment kernel against its plain
+    version at the cells' shapes (S x 256 slots x 100 detections, S = 16 and
+    32, and S = 1 and 64), bit for bit, its time (profiler trace and a CUDA
+    graph of 100 launches), the plain version's wall time and the byte
+    bound; (b) ``run_chunked`` over the phase's frames: the chunk graph's
+    captures, replays and eager chunks, and the kernel's wrapper launches
+    (a replay calls no wrapper); (c) one ``submit_chunk_packed`` chunk
+    graphed and forced eager, tracks and detections bit for bit."""
+    from rtmodt_tpu_torch.ops import assignment
+
+    dev = torch.device(DEVICE)
+    out: dict = {"shapes": {}}
+    gen = np.random.default_rng(21)
+    thr = 1.0 - pipe.tracker.cfg.match_thresh
+    for s, kind in ((32, "tracker"), (16, "tracker"), (1, "tracker"), (64, "tracker"),
+                    (32, "dense")):
+        sim, rv, cv = assign_inputs(gen, s, 256, pipe.cfg.detection.max_detections, kind)
+        want = assignment.greedy_assign_reference(sim, thr, rv, cv)
+        d = tuple(x.to(dev) for x in (sim, rv, cv))
+        before = assignment.launches
+        got = assignment.greedy_assign(d[0], thr, d[1], d[2])
+        torch.cuda.synchronize()
+        calls = assignment.launches - before
+        diff = (int((got.row_to_col.cpu() != want.row_to_col).sum())
+                + int((got.col_to_row.cpu() != want.col_to_row).sum())
+                + abs(int(got.rounds) - want.rounds))
+        launch = lambda d=d: assignment.greedy_assign(d[0], thr, d[1], d[2])  # noqa: E731
+        traced = trace_by_kernel(launch, 100, ("assign_shared_kernel",)).get(
+            "assign_shared_kernel")
+        g_ms = graph_ms(launch, iters=100)
+        plain_ms = cuda_time_ms(lambda d=d: assignment.greedy_assign_reference(
+            d[0], thr, d[1], d[2]), iters=10)
+        bound = assign_bound_ms(s, 256, sim.shape[2])
+        key = f"s{s}_{kind}"
+        out["shapes"][key] = {"trace_ms": None if traced is None else traced["ms"],
+                              "traced_launches": None if traced is None else traced["launches"],
+                              "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                              "rounds": want.rounds, "mismatches": diff}
+        print(f"  greedy kernel {key} ({s} x 256 x {sim.shape[2]}, rounds {want.rounds}): "
+              f"mismatches {diff}, launches {calls}; "
+              + ("no profiler time" if traced is None else
+                 f"{traced['ms']:.5f} ms ({traced['launches']} of 100 launches traced)")
+              + f", in a CUDA graph {g_ms:.5f} ms, plain version {plain_ms:.4f} ms "
+              f"(host-synced rounds), bound {bound:.6f} ms (bytes)", flush=True)
+        if diff or calls != 1:
+            fail(f"greedy kernel differs from its plain version at {key} ({diff}), or "
+                 f"launched {calls} times")
+    # (b) a run: one replay a chunk, no capture (the phase's warm-up captured)
+    t = pipe.tracker
+    counts = (t.graph_captures, t.graph_replays, dict(t.eager_chunks), assignment.launches)
+    pipe.reset()
+    summary = pipe.run_chunked(list(frames))
+    run = {"captures": t.graph_captures - counts[0], "replays": t.graph_replays - counts[1],
+           "eager": {k: v - counts[2].get(k, 0) for k, v in t.eager_chunks.items()
+                     if v != counts[2].get(k, 0)},
+           "assign_launches": assignment.launches - counts[3], "chunks": summary["chunks"]}
+    out["run"] = run
+    print(f"  run_chunked, {summary['chunks']} chunks: graph captures {run['captures']}, "
+          f"replays {run['replays']}, eager chunks {run['eager'] or 'none'}; greedy kernel "
+          f"wrapper launches {run['assign_launches']}; totals: captures "
+          f"{t.graph_captures}, replays {t.graph_replays}", flush=True)
+    if run["replays"] != summary["chunks"] or run["captures"] or run["eager"] \
+            or run["assign_launches"]:
+        fail(f"the chunk graph did not carry the run: {run}")
+    # (c) one chunk graphed and forced eager
+    pipe.reset()
+    graphed = pipe.submit_chunk_packed(frames[:K])
+    pipe._eager_reason = lambda res, feats, grids: "forced"
+    try:
+        pipe.reset()
+        before = assignment.launches
+        eager = pipe.submit_chunk_packed(frames[:K])
+        eager_launches = assignment.launches - before
+    finally:
+        del pipe._eager_reason
+    torch.cuda.synchronize()
+    unequal = [f"{part}.{name}" for part, g, e in zip(("tracks", "detections"), graphed, eager)
+               for name, a, b in zip(g._fields, g, e) if not torch.equal(a, b)]
+    out["graphed_vs_eager"] = unequal
+    print(f"  submit_chunk_packed graphed against forced eager: unequal "
+          f"{unequal or 'none'} ({int(graphed[0].visible[-1].sum())} tracks visible at the "
+          f"last frame; the eager chunk launched the greedy kernel {eager_launches} times)",
+          flush=True)
+    if unequal or eager_launches != 2 * K:
+        fail(f"graphed and eager chunks differ: {unequal}, eager launches {eager_launches}")
+    pipe.reset()
+    return out
 
 
 def k1_times(boxes: torch.Tensor, scores: torch.Tensor, iou: float, label: str,
@@ -4394,6 +4513,7 @@ def main() -> int:
         fail(f"the chunk at nms_candidates {WIDE_CANDIDATES}: K1 launches {wide_launches}, "
              f"unequal {wide_unequal}, K = {wcs.shape[1]}")
     del wide_pipe
+    tracker = tracker_graph_checks(pipe, frames)
 
     phase("6/14 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
@@ -4482,6 +4602,17 @@ def main() -> int:
                  "k": WIDE_TIMED[key][0], "b": WIDE_TIMED[key][1], "kernels": t["kernels"]}
            for key, t in wide_k1.items()},
     }]
+    # the greedy-assignment kernel (phase 5's tracker), at the cells' shape
+    # S = 32 x 256 slots x 100 detections and the others timed there
+    cell = tracker["shapes"]["s32_tracker"]
+    kernels.append({
+        "name": "greedy_assign", "route": "cuda",
+        "source": "rtmodt_tpu_torch/csrc/assign_kernel.cu",
+        "replaces": None,     # no TPU kernel: the JAX package's lax.while_loop was XLA's
+        "ms": cell["trace_ms"], "graph_ms": cell["graph_ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,   # no PyTorch call computes greedy assignment
+        "shapes": tracker["shapes"], "run": tracker["run"]})
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

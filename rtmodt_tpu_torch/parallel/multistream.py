@@ -66,6 +66,7 @@ from rtmodt_tpu_torch.parallel.mesh import (ENV_DEVICES, Mesh, create_mesh, gath
                                             local_mesh, sum_ints)
 from rtmodt_tpu_torch.runtime.pipeline import Pipeline
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs, TrackState, init_track_state
+from rtmodt_tpu_torch.tracking.chunk_graph import clone_state
 from rtmodt_tpu_torch.utils.logging import logger
 
 
@@ -284,9 +285,10 @@ class MultiStreamPipeline:
         GMC carries it found are put back: no phantom tracks and no dummy
         GMC grid survive it, and a restored state does."""
         h, w = shape_hw
-        # the per-stream trackers' lists are updated in place: keep copies
-        found = tuple(list(x) if isinstance(x, list) else x
-                      for x in (self.state, self._gmc_carry))
+        # the per-stream trackers' lists are updated in place, and ByteTrack's
+        # state may be a CUDA graph's, which a replay updates in place: keep copies
+        found = (clone_state(self.state),
+                 list(self._gmc_carry) if isinstance(self._gmc_carry, list) else self._gmc_carry)
         planes, _ = pack_chunk(np.zeros((1, h, w, 3), np.uint8), self.cfg.detection.input_size)
         t, s = max(1, chunk_size), self.local_streams
         self.submit_chunk_packed(tuple(np.ascontiguousarray(

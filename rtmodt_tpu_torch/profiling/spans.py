@@ -13,9 +13,12 @@ The program's spans (one each where the work happens):
     copies, planar letterbox, forward, K1 and unletterbox, queued from the
     host;
   * ``track``: ``Pipeline.track_chunk``, the tracker steps of one chunk;
-  * ``sync``: ``ops/assignment.py::greedy_assign``, each device-to-host read
-    of the loop's condition; the first one inside a ``track`` span waits for
-    the chunk's forward and K1, the others for one greedy round;
+  * ``sync``: ``ops/assignment.py::greedy_assign_reference``, each
+    device-to-host read of the plain loop's condition; the first one inside
+    a ``track`` span waits for the chunk's forward and K1, the others for one
+    greedy round.  Only the plain version reads the host, and it runs for
+    CPU tensors only: on the card the kernel syncs nothing, so a ``track``
+    span there holds no ``sync``;
   * ``emit``: ``events/zone_engine.py::ZoneEventEngine._emit``, one event's
     alert (JSONL append, webhook or MQTT, log line).
 

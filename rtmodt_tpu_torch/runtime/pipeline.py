@@ -15,10 +15,12 @@ Port of ``rtmodt_tpu/runtime/pipeline.py`` (one stream).  Execution modes:
     (``step_packed``, or ``submit_packed_frame`` with a ``pipeline_depth``
     window in ``run``).  Appearance crops come from the padded Y/U/V planes
     (``ops/roi.py::crop_yuv_rgb``) and GMC reads ``half_res_luma`` of the
-    content Y plane.  The trackers' greedy assignment syncs the host on
-    every round (``ops/assignment.py``), so the window holds back only the
-    host's half of each frame (events, render) and overlaps no device work;
-    a sync-free tracker (ROADMAP §1b) would make it real.  With
+    content Y plane.  On the card the trackers' greedy assignment reads
+    nothing back (``ops/assignment.py``'s kernel) and ByteTrack's step
+    replays as a CUDA graph (``track_chunk``), but the detection stages
+    still wait for the card at scalar copies (``ops/nms.py``), so the window
+    holds back only the host's half of each frame (events, render) and
+    overlaps little device work.  With
     ``parallel.transport: bgr`` the loop runs the reference's fused BGR
     program instead (``step``, or ``submit`` in the window): GMC on the
     source frame, the BGR letterbox, forward, NMS and the tracker, with
@@ -93,6 +95,7 @@ from rtmodt_tpu_torch.profiling.latency_profiler import LatencyProfiler
 from rtmodt_tpu_torch.profiling.spans import span
 from rtmodt_tpu_torch.profiling.trace_summary import start_trace, stop_trace
 from rtmodt_tpu_torch.tracking.bytetrack import TrackOutputs
+from rtmodt_tpu_torch.tracking.chunk_graph import clone_state
 from rtmodt_tpu_torch.tracking.tracker import MultiObjectTracker
 from rtmodt_tpu_torch.utils.logging import logger
 from rtmodt_tpu_torch.visualization.renderer import FrameRenderer
@@ -276,8 +279,17 @@ class Pipeline:
         """GMC (with the frames' luma ``grids``, or any luma source
         ``gmc_step`` takes) and the tracker over the K frames in order;
         outputs stacked (K, S, ...).  The tracker state may carry a stream
-        axis (``parallel/multistream.py``).  The ``track`` span."""
+        axis (``parallel/multistream.py``).  The ``track`` span.
+
+        ByteTrack with greedy assignment on the card, without GMC grids or
+        embeddings, runs the K steps as one CUDA-graph replay
+        (``MultiObjectTracker.step_chunk``); anything else runs them one by
+        one, counted in ``tracker.eager_chunks`` under ``_eager_reason``."""
         with span("track"):
+            reason = self._eager_reason(res, feats, grids)
+            if reason is None:
+                return self.tracker.step_chunk(res.boxes, res.scores, res.classes, res.valid)
+            self.tracker.eager_chunks[reason] = self.tracker.eager_chunks.get(reason, 0) + 1
             outs = []
             for i in range(res.boxes.shape[0]):
                 if grids is not None:
@@ -285,6 +297,22 @@ class Pipeline:
                 outs.append(self.tracker.step(res.boxes[i], res.scores[i], res.classes[i],
                                               res.valid[i], None if feats is None else feats[i]))
             return TrackOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+    def _eager_reason(self, res: NMSResult, feats: torch.Tensor | None,
+                      grids: torch.Tensor | None) -> str | None:
+        """Why ``track_chunk`` cannot replay a graph for this chunk (None if
+        it can), the first that holds of: ``tracker`` (OC-SORT, DeepSORT or
+        BoT-SORT), ``gmc`` (luma grids given), ``embeddings`` (appearance
+        features given), ``device`` (detections not on a CUDA card)."""
+        if self.tracker.algorithm != "bytetrack" or self.tracker.cfg.assignment != "greedy":
+            return "tracker"
+        if grids is not None:
+            return "gmc"
+        if feats is not None:
+            return "embeddings"
+        if res.boxes.device.type != "cuda":
+            return "device"
+        return None
 
     def packed_detect(self, planes, src_h: int, src_w: int):
         """The per-frame half of the packed program, batched over the K
@@ -423,7 +451,8 @@ class Pipeline:
         h, w = shape_hw
         dummy = np.zeros((h, w, 3), np.uint8)
         t0 = time.perf_counter()
-        found = (self.tracker.state, self._gmc_carry)
+        # a copy: the state may be a CUDA graph's, which a replay updates in place
+        found = (clone_state(self.tracker.state), self._gmc_carry)
         with torch.no_grad():
             for _ in range(iters):
                 if self._per_stage or self._host_tracker:
@@ -503,7 +532,8 @@ class Pipeline:
         outputs (``transport: bgr``, and ``step`` off the per-stage path): GMC
         on the source frame, the BGR letterbox, the forward, NMS (K1 at B =
         1), appearance crops from the letterboxed image, the tracker.  Not
-        asynchronous: the tracker's assignment rounds sync the host.
+        asynchronous: the detection stages wait for the card at scalar
+        copies.
         Returns the device (TrackOutputs, NMSResult) of the frame."""
         det = self.detector
         h, w = frame.shape[:2]
@@ -528,8 +558,8 @@ class Pipeline:
     def submit_packed_frame(self, frame: np.ndarray) -> tuple[TrackOutputs, NMSResult]:
         """The packed per-frame step up to the tracker's outputs: the host
         packs the frame to planar I420, the device runs the detect + track
-        program.  Not asynchronous: the tracker's assignment rounds sync the
-        host.  Returns the device (TrackOutputs, NMSResult) of the frame."""
+        program.  Not asynchronous: the detection stages wait for the card at
+        scalar copies.  Returns the device (TrackOutputs, NMSResult) of the frame."""
         self._maybe_trace()
         h, w = frame.shape[:2]
         planes, _ = pack_chunk(frame[None], self.cfg.detection.input_size)
@@ -675,9 +705,9 @@ class Pipeline:
                         self.warmup(frame.shape[:2])
                         warmed = True
                     if depth > 0:
-                        # submit (the tracker syncs the host, so no device work
-                        # overlaps); events and render of the oldest frame wait
-                        # until the window is full
+                        # submit (detection waits for the card, so little device
+                        # work overlaps); events and render of the oldest frame
+                        # wait until the window is full
                         p.tick("inference")
                         outputs, _ = (self.submit_packed_frame(frame) if packed
                                       else self.submit(frame))

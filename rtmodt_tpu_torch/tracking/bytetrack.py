@@ -10,8 +10,13 @@ fixed number of slots (default 256), all state on the device:
     in slot order, with ids counting up from 1;
   * deaths: slots unmatched for more than ``track_buffer`` frames are freed.
 
-State tensors are replaced, never written in place, so a caller may keep an
-earlier state.
+``bytetrack_update`` replaces state tensors and never writes them in place,
+so a caller of it may keep an earlier state.  The chunk graph departs from
+that (``tracking/chunk_graph.py``): on the card ``Pipeline.track_chunk``
+replays a chunk's steps on the graph's static state tensors, updated in
+place, and leaves ``MultiObjectTracker.state`` pointing at them; a caller
+that holds a state across chunks keeps a copy (``chunk_graph.clone_state``:
+both warm-ups do; snapshots copy to the host).
 
 Streams: every state tensor may carry a leading stream axis (S, ...), with
 detections (S, D, ...) beside it (``parallel/multistream.py::

@@ -20,6 +20,12 @@ centroid trails capped at ``trail_length`` and pruned of ids long gone.
 on an ``.npz``) move the device state and the trails to and from host numpy
 arrays under the reference's field names and dtypes, so a snapshot of either
 package loads into the other (``runtime/state_store.py``).
+
+``step_chunk`` runs a chunk's T ByteTrack steps as one CUDA-graph replay
+(``tracking/chunk_graph.py``; ``Pipeline.track_chunk`` decides when); after
+it ``state`` is the graph's static state, which the next replay updates in
+place.  Plain counts: ``graph_captures``, ``graph_replays`` and
+``eager_chunks`` (reason -> chunks that ``track_chunk`` ran step by step).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from rtmodt_tpu_torch.config.loader import (BotSortConfig, ByteTrackConfig, Deep
 from rtmodt_tpu_torch.device import resolve_device
 from rtmodt_tpu_torch.tracking.bytetrack import (TrackOutputs, bytetrack_update,
                                                  init_track_state)
+from rtmodt_tpu_torch.tracking.chunk_graph import ChunkGraphs
 from rtmodt_tpu_torch.utils.logging import logger
 
 SHIPPED_EMBEDDER = Path(__file__).resolve().parents[2] / "checkpoints" / "embedder.npz"
@@ -88,6 +95,10 @@ class MultiObjectTracker:
         self._trail_seen: dict[int, int] = {}
         self._host = None
         self._embed_fns: dict = {}
+        self._graphs = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.eager_chunks: dict[str, int] = {}
         self._setup_gmc(kwargs.get("gmc"))
 
         if self.algorithm in ("deepsort", "botsort"):
@@ -279,6 +290,22 @@ class MultiObjectTracker:
                                                feats)
         else:
             self.state, outputs = self._update(self.state, boxes, scores, classes, valid)
+        return outputs
+
+    @torch.no_grad()
+    def step_chunk(self, boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+                   valid: torch.Tensor) -> TrackOutputs:
+        """T ByteTrack (greedy) steps on device detections with T leading,
+        as one CUDA-graph replay (captured on the first chunk of its shapes);
+        outputs stacked (T, ...), fresh tensors."""
+        if self.algorithm != "bytetrack" or self._host is not None:
+            raise RuntimeError("step_chunk replays ByteTrack with greedy assignment only")
+        if self._graphs is None:
+            self._graphs = ChunkGraphs(self.cfg)
+        self.state, outputs, captured = self._graphs.run(self.state,
+                                                         (boxes, scores, classes, valid))
+        self.graph_captures += captured
+        self.graph_replays += 1
         return outputs
 
     def update(self, detections, frame: np.ndarray | None = None) -> list[Track]:

@@ -4,8 +4,9 @@
 The port's counterpart of ``tools/bench_dense.py``, with its flags, config
 overrides and ``rows`` keys, plus ``--device`` (the card by default).  The
 chunk program's cost grows with content in two places: the NMS (K1 works on
-the valid candidates) and the tracker's mutual-best assignment rounds, each
-of which syncs the host (``ops/assignment.py``).  For each density of
+the valid candidates) and the tracker's mutual-best assignment rounds
+(``ops/assignment.py``: on the card one kernel, on the CPU a host read a
+round).  For each density of
 ``dense_moving_scene`` it reports:
 
   * amortized wall ms/frame of ``submit_packed_yuv`` over chunks with
