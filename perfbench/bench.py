@@ -9,7 +9,10 @@ One run (``perfbench/run.py --workload <cell> --seed <n> --seconds <s>
   2. builds the program through its normal constructor
      (``MultiStreamPipeline`` with a ``PipelineConfig`` made from the
      configuration file) and its native kernels (``_build``, cached under
-     the checkout's ``build/``);
+     the checkout's ``build/``); a configuration whose ``weights`` is
+     ``{"seed": n}`` has its architecture module (``manifest.arch_module``)
+     write them first, into the run's temporary directory, from its own
+     seed, and the program and the reference read that one file;
   3. makes every stream's camera frames from the seed (``scenes.py``);
   4. warms up the cell's one chunk shape with two real chunks, then resets
      the trackers;
@@ -28,7 +31,11 @@ Spans of the harness's calls into each layer are kept on the host clock
 (``pack``, ``submit``, ``copy``, ``wait``, ``events``, and ``due`` for an
 open loop's wait for its next chunk).  With ``--trace 1`` a torch.profiler
 trace of a steady sub-window is read for the device's busy time, the top
-device operations and the idle gaps by host span (``devtrace.py``)."""
+device operations and the idle gaps by host span (``devtrace.py``), and the
+program's own span recorder (``rtmodt_tpu_torch/profiling/spans.py``) is on
+from the warm-up to the window's end: its spans, and the tracker's graph
+counters over the window, reach the per-layer readers through
+``RunRecord``.  With ``--trace 0`` the recorder stays off."""
 
 from __future__ import annotations
 
@@ -48,7 +55,6 @@ from contextlib import contextmanager
 import numpy as np
 
 from perfbench import manifest
-from perfbench.flops import forward_flops
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtmodt_tpu")
 
@@ -90,16 +96,30 @@ class Spans:
 
 class RunRecord:
     """What the per-layer metric readers read: spans outside the profiled
-    interval, frames per chunk, the window and the trace's reduction."""
+    interval, frames per chunk, the window and the trace's reduction; with
+    ``--trace 1`` also the program's spans outside the profiled interval
+    (``program_spans``, else None), its counters over the window
+    (``program_counters``), the frames of the traced chunks
+    (``traced_frames``), and the cell's configuration and traffic."""
 
     def __init__(self, spans: list, frames_per_chunk: int, flops_per_frame: float,
                  window: tuple[float, float], emitted: list[float],
-                 excluded: tuple[float, float] | None, trace: dict | None):
+                 excluded: tuple[float, float] | None, trace: dict | None,
+                 program_spans: list | None = None, program_counters: dict | None = None,
+                 traced_frames: int = 0, config: dict | None = None,
+                 traffic: dict | None = None):
         self.frames_per_chunk = frames_per_chunk
         self.flops_per_frame = flops_per_frame
         self.trace = trace
+        self.program_counters = program_counters
+        self.traced_frames = traced_frames
+        self.config = config
+        self.traffic = traffic
         lo, hi = excluded or (math.inf, -math.inf)
         self.spans = [s for s in spans if not (lo <= s[2] <= hi)]
+        self.program_spans = (None if program_spans is None else
+                              [p for p in program_spans if not (lo <= p.t0 <= hi)])
+        self._split = None
         # frames consumed inside the window, outside the profiled interval,
         # over the window's time outside it
         w0, w1 = window
@@ -120,6 +140,20 @@ class RunRecord:
             out += 1e3 * sum(d) / (len(d) * self.frames_per_chunk)
         return out
 
+    def program_ms_per_frame(self, name: str) -> float | None:
+        """Milliseconds a frame in the program's ``name`` spans, over the
+        chunks submitted, each span to the chunk whose harness span holds it
+        (``program_spans.split``: ``track`` less its ``sync`` children);
+        None where the program recorded no such span."""
+        if not self.program_spans or not any(p.name == name for p in self.program_spans):
+            return None
+        if self._split is None:
+            from perfbench import program_spans
+
+            self._split = program_spans.split(self.spans, self.program_spans,
+                                              self.frames_per_chunk)
+        return self._split.get(f"{name}_ms_per_frame")
+
 
 def parse_args(argv: list[str]) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="perfbench/run.py", description=__doc__.split("\n")[0])
@@ -130,12 +164,13 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def program_config(cell: manifest.Cell, root: str, tmp: str):
-    """The program's ``PipelineConfig`` of the cell's configuration file."""
+def program_config(cell: manifest.Cell, weights: str, tmp: str):
+    """The program's ``PipelineConfig`` of the cell's configuration file,
+    reading ``weights``."""
     from rtmodt_tpu_torch.config.loader import load_config
 
     over = json.loads(json.dumps(cell.config["pipeline"]))
-    over["detection"]["weights"] = os.path.join(root, cell.config["weights"])
+    over["detection"]["weights"] = weights
     over.setdefault("events", {}).setdefault("alert", {})["log_path"] = \
         os.path.join(tmp, "events.jsonl")
     over.setdefault("parallel", {}).update(
@@ -154,8 +189,9 @@ def run(args: argparse.Namespace, t_start: float, root: str = manifest.ROOT,
         device: str | None = None, hooks: dict | None = None) -> dict:
     """One run; returns the result line's object (``checks`` last).
     ``device`` skips the look for a card (the CPU tests); ``hooks`` lets
-    the control and the tests reach the cell as loaded, the program and
-    the record."""
+    the control and the tests reach the cell as loaded (``cell``), the
+    program (``pipeline``), the ``RunRecord`` (``run``), the record compared
+    (``record``) and the numbers (``numbers``)."""
     hooks = hooks or {}
     cell = manifest.load_cell(args.workload, root)
     if "cell" in hooks:
@@ -165,6 +201,10 @@ def run(args: argparse.Namespace, t_start: float, root: str = manifest.ROOT,
     try:
         return _run(args, t_start, root, device, hooks, cell, tmp)
     finally:
+        if args.trace:
+            from rtmodt_tpu_torch.profiling import spans
+
+            spans.disable()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -187,10 +227,19 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
     logger.remove()
     logger.add(os.path.join(tmp, "program.log"), level="INFO")
     logger.add(sys.stderr, level="WARNING")
-    cfg = program_config(cell, root, tmp)
+    arch = manifest.arch_module(conf, root)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     marks = [("imports", time.perf_counter())]
+    weights = conf["weights"]
+    if isinstance(weights, dict):
+        # the configuration's seed, not the run's: every run loads one model
+        weights = arch.seeded_weights(conf, int(weights["seed"]), os.path.join(tmp, "weights"),
+                                      device)
+        marks.append(("weights", time.perf_counter()))
+    else:
+        weights = os.path.join(root, weights)
+    cfg = program_config(cell, weights, tmp)
     if on_card:
         _build.build_all()
     marks.append(("build", time.perf_counter()))
@@ -295,6 +344,22 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
         st.emit.append((c, time.perf_counter()))
         return c
 
+    recorder = None
+    if args.trace:
+        from rtmodt_tpu_torch.profiling import spans as recorder
+
+        recorder.drain()
+        recorder.enable()
+    # counters the recorder keeps itself, where it has them: a recorder with
+    # ``drain_counts() -> {name: n}`` hands them over as it hands its spans
+    drain_counts = getattr(recorder, "drain_counts", dict)
+
+    def program_counts() -> dict[str, int]:
+        t = pipe.tracker
+        out = {"graph_captures": t.graph_captures, "graph_replays": t.graph_replays}
+        out.update({f"eager_chunks.{k}": v for k, v in t.eager_chunks.items()})
+        return out
+
     # -- warm-up: the cell's one chunk shape, through every layer ------------
     reset(record=False)
     for c in range(2):
@@ -312,6 +377,10 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
     if on_card:
         torch.cuda.synchronize()
     spans.items.clear()
+    if recorder is not None:
+        recorder.drain()
+        drain_counts()
+        counts0 = program_counts()
     reset(record=True)
     plane_chunks = sorted(int(x) for x in rng.choice(np.arange(1, 9), 2, replace=False))
     phases = rng.uniform(0.0, 1.0 / cam_fps, S)
@@ -416,6 +485,13 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
     finally:
         if prof is not None:
             prof.stop()
+        if recorder is not None:
+            recorder.disable()
+    program, counts = None, None
+    if recorder is not None:
+        program = recorder.drain()
+        counts = {k: v - counts0.get(k, 0) for k, v in program_counts().items()}
+        counts.update(drain_counts())
     cpu = time.process_time() - cpu0
     prev = t_start
     phases = []
@@ -444,10 +520,12 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
             raise RuntimeError("the window ended before the traced sub-window; lengthen --seconds")
         lo, hi = prof_span
         trace = devtrace.reduce(trace_path, [(n, a, b) for n, _, a, b in spans.items
-                                             if lo <= a and b <= hi], devtrace.unix_offset())
+                                             if lo <= a and b <= hi], devtrace.unix_offset(),
+                                program=program)
         print(f"perfbench: trace holds {trace['k1_launches']} K1 launches for the "
-              f"{len(traced)} chunks it covered ({trace['kernels']} kernels in all)",
-              file=sys.stderr)
+              f"{len(traced)} chunks it covered ({trace['kernels']} kernels in all); program "
+              f"counters over the window {json.dumps(counts, sort_keys=True)}; "
+              f"{len(program)} program spans", file=sys.stderr)
 
     # -- what the timed path produced, to host; free the program -----------
     rec = {"streams": chk, "chunk": T, "camera_fps": cam_fps, "planes": st.planes,
@@ -457,9 +535,12 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
                    for k in ("boxes", "scores", "classes", "valid")}
     rec["tracks"] = {k: np.stack([x[i] for x in st.tracks])
                      for i, k in enumerate(("boxes", "track_id", "class_id", "visible"))}
-    flops = forward_flops(conf, cfg.detection.input_size)
-    rr = RunRecord(spans.items, T * S, flops, (t0, t0 + window_s), [t for _, t in st.emit],
-                   prof_span, trace)
+    rr = RunRecord(spans.items, T * S, arch.forward_flops(conf), (t0, t0 + window_s),
+                   [t for _, t in st.emit], prof_span, trace, program_spans=program,
+                   program_counters=counts, traced_frames=len(traced) * T * S, config=conf,
+                   traffic=tr)
+    if "run" in hooks:
+        hooks["run"](rr)
     del pipe, slots, st.dets, st.engines, st.inflight
     gc.collect()
     if on_card:
@@ -467,15 +548,16 @@ def _run(args, t_start, root, device, hooks, cell, tmp) -> dict:
     t_check = time.perf_counter()
     if "record" in hooks:
         hooks["record"](rec, conf)
-    numbers = check.run_check(rec, pool[:F], conf, dev)
+    numbers = check.run_check(rec, pool[:F], conf, dev, arch, weights)
     if "numbers" in hooks:
         hooks["numbers"](numbers)
     check_s = time.perf_counter() - t_check
 
     # -- the result line ----------------------------------------------------
-    limits = {k: float(cell.limits[k]) for k in check.ORDER}
-    checks = {k: {"value": numbers[k], "limit": limits[k]} for k in check.ORDER}
-    correct = all(numbers[k] <= limits[k] for k in check.ORDER)
+    compared = check.order(arch)
+    limits = {k: float(cell.limits[k]) for k in compared}
+    checks = {k: {"value": numbers[k], "limit": limits[k]} for k in compared}
+    correct = all(numbers[k] <= limits[k] for k in compared)
     if args.trace:
         metrics = {}
         for m in cell.per_layer:

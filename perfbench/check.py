@@ -10,9 +10,11 @@ Layers and numbers (each with its own limit, ``perfbench/limits/<cell>.json``):
     K1) in every frame of the sampled streams in the window, of the widest
     coordinate gap in camera pixels to the reference detection each matches
     one to one (same class, IoU >= 0.5, greedy by IoU); the reference runs
-    the float32 detector on its own planes.  The mean, not the widest gap: a detection whose box
-    distribution has two modes moves by tens of pixels under any rounding,
-    so the widest gap of sound runs reaches a third of the control's;
+    the float32 detector of the configuration's architecture module
+    (``perfbench/archs/<arch>.py``) on its own planes.  The mean, not the
+    widest gap: a detection whose box distribution has two modes moves by
+    tens of pixels under any rounding, so the widest gap of sound runs
+    reaches a third of the control's;
   * ``det_score_gap_mean``: the mean score gap of those matched pairs (the
     widest score gap of sound runs swings up to a third of the control's);
   * ``det_unmatched_pct``: the share of detections, the program's and the
@@ -20,7 +22,9 @@ Layers and numbers (each with its own limit, ``perfbench/limits/<cell>.json``):
     detection counts, whatever it overlaps);
   * ``det_overlap_pairs``: pairs of the program's detections in one frame
     that greedy suppression at the configuration's ``iou_threshold`` would
-    not both keep (exact; boxes on the frame's edge left out);
+    not both keep (exact; boxes on the frame's edge left out); only where
+    the architecture module's ``SUPPRESSED`` says greedy suppression is the
+    detector's guarantee, and left out of the comparison elsewhere;
   * ``track_mismatch``: slots of the sampled streams' frames whose
     visibility, or (visible) track id or class, differs from the reference
     tracker's; ``track_box_gap_px``: the widest gap of the box of a track
@@ -43,7 +47,7 @@ import torch
 
 from perfbench.reference import pack as ref_pack
 from perfbench.reference.bytetrack import ByteTrackRef
-from perfbench.reference.yolo import PlainYOLOv8, detect, pair_iou
+from perfbench.reference.yolo import pair_iou
 from perfbench.reference.zones import ZonesRef
 from perfbench.scenes import pool_index
 
@@ -53,14 +57,21 @@ ORDER = ("planes_bytes_off", "det_box_gap_mean_px", "det_score_gap_mean", "det_u
          "det_overlap_pairs", "track_mismatch", "track_box_gap_px", "event_mismatch")
 
 
+def order(arch) -> tuple[str, ...]:
+    """The numbers compared for an architecture module: ``det_overlap_pairs``
+    only where greedy suppression is its detector's guarantee."""
+    return ORDER if arch.SUPPRESSED else tuple(k for k in ORDER if k != "det_overlap_pairs")
+
+
 def reference_detections(pool: np.ndarray, streams: list[int], geo: ref_pack.Geometry,
-                         det: dict, weights: str, device: torch.device, batch: int = 16):
+                         cfg: dict, arch, weights: str, device: torch.device, batch: int = 16):
     """Reference planes and detections of every pool frame of ``streams``:
     (planes (y, u, v) each (F, ns, ...) uint8 numpy, dets dict of (F, ns,
     max_det, ...) numpy in camera pixels)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = PlainYOLOv8(weights, device)
+    det = cfg["pipeline"]["detection"]
+    model = arch.load_reference(cfg, weights, device)
     f, ns = pool.shape[0], len(streams)
     planes = None
     outs: dict[str, list] = {k: [] for k in ("boxes", "scores", "classes", "valid")}
@@ -73,7 +84,7 @@ def reference_detections(pool: np.ndarray, streams: list[int], geo: ref_pack.Geo
         ys.append(y.cpu())
         us.append(u.cpu())
         vs.append(v.cpu())
-        d = detect(model, ref_pack.model_input(y, u, v, geo), det)
+        d = arch.detect(model, ref_pack.model_input(y, u, v, geo), det)
         d["boxes"] = ref_pack.to_source(d["boxes"], geo)
         for k in outs:
             outs[k].append(d[k].cpu())
@@ -206,9 +217,11 @@ def reference_tracks(dets: dict, cfg: dict, slots: int, n_streams: int, t_chunk:
                 yield j, c, t, o, evs
 
 
-def run_check(rec: dict, pool: np.ndarray, cfg: dict, device: torch.device
-              ) -> dict[str, float]:
-    """The numbers of ``ORDER`` for one run's record: ``streams`` (sampled
+def run_check(rec: dict, pool: np.ndarray, cfg: dict, device: torch.device, arch,
+              weights: str) -> dict[str, float]:
+    """The numbers of ``order(arch)`` for one run's record, the reference
+    detector of ``arch`` (the configuration's architecture module) reading
+    ``weights``, the file the program read: ``streams`` (sampled
     stream indices), ``chunk`` T, ``fps`` of the cameras, ``planes`` {chunk:
     (y, u, v) (T, ns, ...)}, ``dets`` (C, T, ns, D[, 4]) arrays of the
     program, ``tracks`` (C, T, ns, N[, 4]) arrays of the program, ``events``
@@ -219,7 +232,7 @@ def run_check(rec: dict, pool: np.ndarray, cfg: dict, device: torch.device
     h, w = pool.shape[2:4]
     geo = ref_pack.geometry(h, w, det["input_size"])
     f = pool.shape[0]
-    ref_planes, ref_dets = reference_detections(pool, streams, geo, det, cfg["weights"], device)
+    ref_planes, ref_dets = reference_detections(pool, streams, geo, cfg, arch, weights, device)
     out: dict[str, float] = {}
 
     # planes
@@ -239,8 +252,10 @@ def run_check(rec: dict, pool: np.ndarray, cfg: dict, device: torch.device
     prog_w = {k: v.reshape(-1, *v.shape[3:]) for k, v in rec["dets"].items()}
     out["det_box_gap_mean_px"], out["det_score_gap_mean"], out["det_unmatched_pct"] = \
         compare_detections(prog_w, ref_w, device)
-    out["det_overlap_pairs"] = float(overlap_pairs(prog_w, det["iou_threshold"],
-                                                   bool(det.get("agnostic_nms")), w, h, device))
+    if arch.SUPPRESSED:
+        out["det_overlap_pairs"] = float(overlap_pairs(prog_w, det["iou_threshold"],
+                                                       bool(det.get("agnostic_nms")), w, h,
+                                                       device))
 
     # tracks and events, stream by stream
     mism = 0

@@ -2,9 +2,11 @@
 computed in the precision below the configuration's, which the limits of
 ``perfbench/limits/<cell>.json`` must call not correct.
 
-  * the detector: the program's own int8 path (``detection.quant: int8``,
-    ``quant/ptq.py``), calibrated on eight of the run's camera frames, in
-    place of the bf16 forward;
+  * the detector: the architecture module's ``control_config`` and
+    ``control_detector`` (``perfbench/archs/<arch>.py``); for YOLOv8 the
+    program's own int8 path (``detection.quant: int8``, ``quant/ptq.py``),
+    calibrated on eight of the run's camera frames, in place of the bf16
+    forward (``int8_config``, ``int8_detector``);
   * the tracker: the reference tracker with its state rounded to bfloat16
     after every step, put in the program's place (its tracks and events
     replace the program's before the comparison).
@@ -26,7 +28,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from perfbench import bench, check  # noqa: E402
+from perfbench import bench, check, manifest  # noqa: E402
 
 
 def int8_config(cell) -> None:
@@ -53,10 +55,26 @@ def bf16_tracker(rec: dict, cfg: dict) -> None:
     rec["tracks"], rec["events"] = out, events
 
 
+def control_hooks(root: str = manifest.ROOT) -> dict:
+    """``bench.run``'s hooks of the control: the cell's architecture
+    module's detector control, where it has one, and the bf16 tracker."""
+    arch = {}
+
+    def cell(c) -> None:
+        arch["module"] = manifest.arch_module(c.config, root)
+        if hasattr(arch["module"], "control_config"):
+            arch["module"].control_config(c)
+
+    def pipeline(pipe, pool) -> None:
+        if hasattr(arch["module"], "control_detector"):
+            arch["module"].control_detector(pipe, pool)
+
+    return {"cell": cell, "pipeline": pipeline, "record": bf16_tracker}
+
+
 def main(argv: list[str]) -> int:
     args = bench.parse_args(argv)
-    res = bench.run(args, T_START, hooks={"cell": int8_config, "pipeline": int8_detector,
-                                          "record": bf16_tracker})
+    res = bench.run(args, T_START, hooks=control_hooks())
     for k, v in res["checks"].items():
         print(f"control {k} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
     print(json.dumps({"correct": res["correct"], "checks": res["checks"],

@@ -10,7 +10,12 @@ The device's busy time is the union of the intervals of its operations
 traced window runs from the start of the first to the end of the last
 harness span of the traced chunks; its idle gaps, the parts of the window
 no device operation covers, are split over the harness spans open during
-them, each part to the innermost span (``between spans`` where none is)."""
+them, each part to the innermost span (``between spans`` where none is).
+Given the program's own spans (``rtmodt_tpu_torch/profiling/spans.py``),
+the gaps are split over them too (``program_idle``).  ``kernel_table``
+holds every kernel of the window by its short name (``kernel_name``): its
+seconds inside the window and its launches, for a reader of any kernel's
+roofline share."""
 
 from __future__ import annotations
 
@@ -97,16 +102,41 @@ def gaps(busy: list[tuple[float, float]], w0: float, w1: float) -> list[tuple[fl
     return out
 
 
+def program_idle(idle_gaps: list[tuple[float, float]], program: list[tuple[str, float, float]],
+                 w0: float, w1: float) -> dict[str, float]:
+    """Idle seconds by program span: each part of a gap (trace microseconds)
+    to the innermost program span (name, start, end) open over it, ``sync``
+    being the only one that nests in another; ``outside`` where none is."""
+    rest = idle_gaps
+    idle: dict[str, float] = defaultdict(float)
+    for name in sorted({n for n, _, _ in program}, key=lambda n: (n != "sync", n)):
+        under = union(clip([(a, b) for n, a, b in program if n == name], w0, w1))
+        left = []
+        for a, b in rest:
+            hit = clip(under, a, b)
+            idle[name] += sum(y - x for x, y in hit) * 1e-6
+            left.extend(gaps(hit, a, b))
+        rest = left
+    idle["outside"] += sum(b - a for a, b in rest) * 1e-6
+    return dict(idle)
+
+
 def reduce(path: str, host_spans: list[tuple[str, float, float]], unix_off: float,
-           k1_names: tuple[str, ...] = K1_KERNELS, top: int = 10) -> dict:
+           k1_names: tuple[str, ...] = K1_KERNELS, top: int = 10,
+           program: list | None = None) -> dict:
     """Busy and window seconds, the top device operations, idle seconds by
-    harness span, and the K1 launches the trace holds.  ``host_spans`` are
-    the traced chunks' (name, start, end) on ``time.perf_counter()``, and
-    ``unix_off`` that clock's offset to the Unix clock."""
+    harness span, the K1 launches the trace holds and every kernel's seconds
+    and launches.  ``host_spans`` are the traced chunks' (name, start, end)
+    on ``time.perf_counter()``, and ``unix_off`` that clock's offset to the
+    Unix clock; ``program``, the program's spans on the same clock, adds
+    ``program_idle``."""
     raw, base_us = load(path)
     events = [e for e in raw if e.get("ph") == "X"]
-    spans = [((a + unix_off) * 1e6 - base_us, (b + unix_off) * 1e6 - base_us, name)
-             for name, a, b in host_spans]
+
+    def us(t: float) -> float:
+        return (t + unix_off) * 1e6 - base_us
+
+    spans = [(us(a), us(b), name) for name, a, b in host_spans]
     if not spans:
         raise ValueError("no harness span in the traced sub-window")
     w0, w1 = min(s[0] for s in spans), max(s[1] for s in spans)
@@ -139,11 +169,25 @@ def reduce(path: str, host_spans: list[tuple[str, float, float]], unix_off: floa
         for x0, x1 in rest:
             idle["between spans"] += (x1 - x0) * 1e-6
     k1 = sum(1 for _, _, name in dev if kernel_name(name) in k1_names)
-    return {
+    table: dict[str, dict] = {}
+    for e in events:
+        a = float(e["ts"])
+        lo, hi = max(a, w0), min(a + float(e.get("dur", 0.0)), w1)
+        if e.get("cat") == "kernel" and hi > lo:
+            row = table.setdefault(kernel_name(str(e["name"])), {"seconds": 0.0, "launches": 0})
+            row["seconds"] += (hi - lo) * 1e-6
+            row["launches"] += 1
+    out = {
         "busy_s": busy_us * 1e-6,
         "window_s": (w1 - w0) * 1e-6,
         "device_ops": sorted(([k, v] for k, v in by_op.items()), key=lambda x: -x[1])[:top],
         "idle_gaps": sorted(([k, v] for k, v in idle.items()), key=lambda x: -x[1])[:top],
         "k1_launches": k1,
         "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+        "kernel_table": table,
     }
+    if program is not None:
+        out["program_idle"] = program_idle(gaps(busy, w0, w1),
+                                           [(p.name, us(p.t0), us(p.t1)) for p in program],
+                                           w0, w1)
+    return out

@@ -8,7 +8,15 @@ per-layer metric is a file of its own, found by name:
   * a traffic mix: ``perfbench/workloads/<traffic>.json``;
   * a per-layer metric's reader: ``perfbench/metrics/<metric name>.py``,
     a module with ``read(run) -> float | None``;
-  * a cell's correctness limits: ``perfbench/limits/<cell name>.json``.
+  * a cell's correctness limits: ``perfbench/limits/<cell name>.json``;
+  * a configuration's architecture: ``perfbench/archs/<arch>.py`` (the
+    configuration's ``arch``, ``yolov8`` where it has none), a module with
+    ``forward_flops(conf) -> float``, ``load_reference(conf, weights_path,
+    device)``, ``detect(model, x, det) -> {boxes, scores, classes, valid}``
+    in model-input pixels and ``SUPPRESSED: bool`` (greedy suppression is
+    the detector's guarantee); optionally ``seeded_weights(conf, seed, stem,
+    device) -> path`` (for ``"weights": {"seed": n}``), ``control_config(cell)``
+    and ``control_detector(pipe, pool)``.
 
 A later change adds a cell, a configuration, a traffic mix or a metric by
 adding such files and manifest entries; no file here changes."""
@@ -28,6 +36,7 @@ ROOT = os.path.dirname(BENCH_DIR)
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
+DEFAULT_ARCH = "yolov8"
 
 
 def load_manifest(root: str = ROOT) -> dict[str, Any]:
@@ -78,14 +87,31 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
         per_layer=[p for p in m["per_layer"] if reports(p, name)])
 
 
+def _load_file(path: str, module_name: str) -> Any:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def metric_reader(name: str, root: str = ROOT) -> Callable[[Any], float | None]:
     """The ``read`` function of ``perfbench/metrics/<name>.py``."""
     path = os.path.join(root, "perfbench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{name.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file(path, f"perfbench_metric_{name.replace('.', '_')}").read
+
+
+def arch_name(conf: dict[str, Any]) -> str:
+    return conf.get("arch", DEFAULT_ARCH)
+
+
+def arch_module(conf: dict[str, Any], root: str = ROOT) -> Any:
+    """The architecture module ``perfbench/archs/<arch>.py`` of a
+    configuration file's contents."""
+    name = arch_name(conf)
+    if not NAME_RE.match(name):
+        raise ValueError(f"bad arch name {name!r}")
+    path = os.path.join(root, "perfbench", "archs", f"{name}.py")
+    return _load_file(path, f"perfbench_arch_{name.replace('.', '_').replace('-', '_')}")
 
 
 def problems(m: dict[str, Any], root: str = ROOT) -> list[str]:
@@ -118,6 +144,11 @@ def problems(m: dict[str, Any], root: str = ROOT) -> list[str]:
                 out.append(f"bad reduced key {k!r}")
         if not os.path.exists(os.path.join(root, c["file"])):
             out.append(f"missing config file {c['file']}")
+            continue
+        arch = arch_name(_json(os.path.join(root, c["file"])))
+        if not (NAME_RE.match(arch)
+                and os.path.exists(os.path.join(root, "perfbench", "archs", f"{arch}.py"))):
+            out.append(f"no architecture module perfbench/archs/{arch}.py for {c['name']}")
     e2e = {e["name"]: e for e in m["end_to_end"]}
     cells = [w["name"] for w in m["workloads"]]
     for p in m["per_layer"]:

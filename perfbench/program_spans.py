@@ -4,14 +4,16 @@ device's idle time under each of them.
 
     python3 perfbench/program_spans.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-runs one run of the cell as ``perfbench/run.py`` does, with the program's
-span recorder on from before the warm-up (through ``bench.run``'s
-``pipeline`` hook), and prints the run's result line with a
-``program_spans`` object added, last on standard output.  With ``--trace
-0`` it also measures what the recorder costs when on: compare its ``fps``
-with ``run.py``'s on the same seed.  The benchmark's own runs never run it:
-``bench.py`` keeps its spans and the trace's path to itself, so this tool
-takes them from ``bench.RunRecord`` and ``devtrace.reduce``, which it wraps.
+runs one run of the cell as ``perfbench/run.py`` does and prints the run's
+result line with a ``program_spans`` object added, last on standard output.
+With ``--trace 1`` the harness records the program's spans itself and hands
+them over in its ``RunRecord`` (``program_spans``, ``program_counters``, and
+the trace's ``program_idle``), which this tool reads.  With ``--trace 0``
+the tool turns the recorder on from before the warm-up (through
+``bench.run``'s ``pipeline`` hook), which the harness never does there: its
+``fps`` against ``run.py``'s on the same seed is what the recorder costs
+when on.  The benchmark's own runs never run it; its per-layer readers take
+``split``'s attribution through ``RunRecord.program_ms_per_frame``.
 
 Readings (ms a frame over the frames of the chunks counted; a program span
 belongs to the chunk whose harness ``submit`` or ``events`` span contains
@@ -46,7 +48,7 @@ from collections import defaultdict  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from perfbench import bench, devtrace, manifest  # noqa: E402
+from perfbench import bench, manifest  # noqa: E402
 
 SUBMIT_PARTS = ("detect_ms_per_frame", "forward_wait_ms_per_frame", "track_ms_per_frame",
                 "round_sync_ms_per_frame")
@@ -104,37 +106,6 @@ def split(harness: list, program: list, frames_per_chunk: int,
     return out
 
 
-def idle_by_span(path: str, harness: list[tuple[str, float, float]], program: list,
-                 unix_off: float) -> tuple[dict[str, float], float]:
-    """(idle seconds of the traced window by program span, the window's
-    seconds): the window and the device's busy time as ``devtrace.reduce``
-    takes them, from the traced chunks' harness spans (name, t0, t1); each
-    part of an idle gap goes to the innermost program span open over it
-    (``sync`` inside ``track``), ``outside`` where none is."""
-    raw, base_us = devtrace.load(path)
-
-    def us(t: float) -> float:
-        return (t + unix_off) * 1e6 - base_us
-
-    w0, w1 = min(us(a) for _, a, _ in harness), max(us(b) for _, _, b in harness)
-    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in raw
-           if e.get("ph") == "X" and e.get("cat") in devtrace.DEVICE_CATS]
-    rest = devtrace.gaps(devtrace.union(devtrace.clip(dev, w0, w1)), w0, w1)
-    idle: dict[str, float] = defaultdict(float)
-    names = sorted({p.name for p in program}, key=lambda n: n != "sync")   # innermost first
-    for name in names:
-        under = devtrace.union(devtrace.clip([(us(p.t0), us(p.t1)) for p in program
-                                              if p.name == name], w0, w1))
-        left = []
-        for a, b in rest:
-            hit = devtrace.clip(under, a, b)
-            idle[name] += sum(y - x for x, y in hit) * 1e-6
-            left.extend(devtrace.gaps(hit, a, b))
-        rest = left
-    idle["outside"] += sum(b - a for a, b in rest) * 1e-6
-    return dict(idle), (w1 - w0) * 1e-6
-
-
 def device_idle_track_pct(idle: dict[str, float], window_s: float) -> float:
     """The window's idle share while the host is inside ``track`` (its
     ``sync`` children included), in percent."""
@@ -148,38 +119,30 @@ def run(argv: list[str], root: str = manifest.ROOT, device: str | None = None) -
     from rtmodt_tpu_torch.profiling import spans
 
     args = bench.parse_args(argv)
-    seen: dict = {"program": []}
-    record, reduce = bench.RunRecord, devtrace.reduce
+    seen: dict = {}
 
-    def traced_reduce(path, host_spans, unix_off, *a, **k):
-        out = reduce(path, host_spans, unix_off, *a, **k)
-        seen["program"].extend(spans.drain())
-        lo, hi = min(s[1] for s in host_spans), max(s[2] for s in host_spans)
-        inside = [p for p in seen["program"] if lo <= p.t0 and p.t1 <= hi]
-        seen["idle"] = idle_by_span(path, host_spans, inside, unix_off)
-        return out
-
-    class Record(record):
-        def __init__(self, harness, frames_per_chunk, flops, window, emitted, excluded,
-                     trace):
-            super().__init__(harness, frames_per_chunk, flops, window, emitted, excluded, trace)
+    def keep(rr) -> None:
+        if not args.trace:
             spans.disable()
-            seen["program"].extend(spans.drain())
-            seen.update(harness=self.spans, frames_per_chunk=frames_per_chunk,
-                        excluded=excluded, submit=self.ms_per_frame("submit"))
+            seen["program"] = spans.drain()
+        seen["run"] = rr
 
-    bench.RunRecord, devtrace.reduce = Record, traced_reduce
+    hooks = {"run": keep}
+    if not args.trace:
+        hooks["pipeline"] = lambda pipe, pool: spans.enable()
     try:
-        result = bench.run(args, T_START, root, device,
-                           hooks={"pipeline": lambda pipe, pool: spans.enable()})
+        result = bench.run(args, T_START, root, device, hooks=hooks)
     finally:
-        bench.RunRecord, devtrace.reduce = record, reduce
         spans.disable()
-    got = split(seen["harness"], seen["program"], seen["frames_per_chunk"], seen["excluded"])
-    got["submit_ms_per_frame"] = seen["submit"]
-    got["spans_recorded"] = len(seen["program"])
-    if "idle" in seen:
-        idle, window_s = seen["idle"]
+    rr = seen["run"]
+    program = rr.program_spans if args.trace else seen["program"]
+    got: dict = split(rr.spans, program, rr.frames_per_chunk)
+    got["submit_ms_per_frame"] = rr.ms_per_frame("submit")
+    got["spans_recorded"] = len(program)
+    if rr.program_counters is not None:
+        got["program_counters"] = rr.program_counters
+    if rr.trace is not None:
+        idle, window_s = rr.trace["program_idle"], rr.trace["window_s"]
         got["device_idle_track_pct"] = device_idle_track_pct(idle, window_s)
         print("perfbench: idle s by program span " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(idle.items(), key=lambda x: -x[1]))

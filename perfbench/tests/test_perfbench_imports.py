@@ -38,7 +38,9 @@ def test_reference_imports_nothing_of_the_program():
     mods = _loaded_top_levels(
         "import perfbench.check, perfbench.scenes, perfbench.flops\n"
         "import perfbench.reference.yolo, perfbench.reference.pack\n"
-        "import perfbench.reference.bytetrack, perfbench.reference.zones")
+        "import perfbench.reference.bytetrack, perfbench.reference.zones\n"
+        "from perfbench import manifest\n"
+        "manifest.arch_module({}).load_reference, manifest.arch_module({}).detect")
     assert "rtmodt_tpu_torch" not in mods
     assert not mods & FORBIDDEN
 

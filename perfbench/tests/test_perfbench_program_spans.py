@@ -1,8 +1,9 @@
 """The program's spans read beside the harness's (``perfbench/program_spans.py``):
 the chunk rule, the self time of ``track``, the first-``sync`` rule and the
-profiled sub-window left out, on a hand-built ``RunRecord``; the idle split
-by program span on ``fixtures/trace_small.json``; one run of a CPU-sized
-cell through the tool."""
+profiled sub-window left out, on a hand-built ``RunRecord``, and the
+readers' ``RunRecord.program_ms_per_frame``; the idle split by program span
+(``devtrace.reduce``'s ``program_idle``) on ``fixtures/trace_small.json``;
+one run of a CPU-sized cell through the tool."""
 
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ def _program() -> list:
     ]
 
 
-def _record() -> bench.RunRecord:
+def _record(program: list | None = None) -> bench.RunRecord:
     return bench.RunRecord(_harness(), FRAMES, 1.0, (0.0, 90.0), [24.0, 54.0, 84.0], EXCLUDED,
-                           None)
+                           None, program_spans=program)
 
 
 def test_split_by_chunk_with_self_time_and_first_sync():
@@ -70,6 +71,17 @@ def test_split_by_chunk_with_self_time_and_first_sync():
     assert parts == pytest.approx(rr.ms_per_frame("submit") * 16.5 / 20)   # 3.5 s outside
 
 
+def test_record_leaves_out_the_sub_window_and_reads_as_split():
+    rr = _record(_program())
+    assert all(not EXCLUDED[0] <= p.t0 <= EXCLUDED[1] for p in rr.program_spans)
+    assert len(rr.program_spans) == len(_program()) - 3
+    got = program_spans.split(rr.spans, _program(), rr.frames_per_chunk, EXCLUDED)
+    for name in ("detect", "track"):
+        assert rr.program_ms_per_frame(name) == pytest.approx(got[f"{name}_ms_per_frame"])
+    assert rr.program_ms_per_frame("forward") is None          # no such span
+    assert _record().program_ms_per_frame("detect") is None    # recorder off
+
+
 def test_split_without_exclusion_counts_every_chunk():
     harness = _harness()
     got = program_spans.split(harness, _program(), FRAMES)
@@ -85,11 +97,12 @@ def test_idle_split_on_the_fixture():
     program = [Span("detect", None, 90e-6, 100e-6, 1), Span("sync", "track", 180e-6, 300e-6, 1),
                Span("sync", "track", 320e-6, 340e-6, 1), Span("track", None, 180e-6, 390e-6, 1),
                Span("emit", None, 400e-6, 450e-6, 1)]
-    r = devtrace.reduce(FIXTURE, harness, 1000.0)
-    assert set(r) == {"busy_s", "window_s", "device_ops", "idle_gaps", "k1_launches", "kernels"}
+    r = devtrace.reduce(FIXTURE, harness, 1000.0, program=program)
+    assert set(r) == {"busy_s", "window_s", "device_ops", "idle_gaps", "k1_launches", "kernels",
+                      "kernel_table", "program_idle"}
+    assert "program_idle" not in devtrace.reduce(FIXTURE, harness, 1000.0)
     assert r["busy_s"] == pytest.approx(110e-6, abs=1e-9)
-    idle, window_s = program_spans.idle_by_span(FIXTURE, harness, program, 1000.0)
-    assert window_s == pytest.approx(r["window_s"], abs=1e-12)
+    idle, window_s = r["program_idle"], r["window_s"]
     want = {"sync": 140e-6, "track": 50e-6, "detect": 10e-6, "emit": 50e-6, "outside": 90e-6}
     assert set(idle) == set(want)
     for k, v in want.items():
