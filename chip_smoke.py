@@ -39,7 +39,12 @@ Phases (each prints one line when it starts; any failure exits non-zero):
      plain version's and the byte bound; ``run_chunked`` carried by the chunk
      graph (one replay a chunk, no capture, no eager chunk, no wrapper
      launch); one ``submit_chunk_packed`` chunk graphed and forced eager, bit
-     for bit;
+     for bit; then G2, RT-DETR's deformable-sampling kernel, against its
+     plain version at the benchmark cell's shape (256 frames, 300 queries,
+     8 heads, levels 80/40/20, 4 points, bf16 maps) and at 16 frames, its
+     time, the plain version's and the byte bound, and its launches in an
+     RT-DETR-L ``run_chunked`` over the phase's frames (one a decoder layer
+     and chunk);
   6. the live per-frame paths: ``Pipeline.run`` on a 25-fps 720p file (a)
      per stage, with the renderer and the annotated video saved, and (b) on
      the packed per-frame path with 2 frames in flight: K1's launches, the
@@ -177,7 +182,8 @@ Phases (each prints one line when it starts; any failure exits non-zero):
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Where CUDA is not available it exits
 non-zero and prints no result.  It imports torch, numpy, the standard
-library and ``rtmodt_tpu_torch`` only.
+library, ``rtmodt_tpu_torch``, the repository's ``tools`` and, for G2's
+bound, ``perfbench/msdeform_bound.py`` only.
 """
 
 from __future__ import annotations
@@ -222,6 +228,11 @@ WIDE_CANDIDATES = 2048  # phase 5's chunk through K1's wide path
 ONE_CTA_MAX_K = 1024
 F32_PEAK = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM HBM3, bytes/s
+# G2 at the rtdetr-l-640.streams32 cell's launch: (levels, heads, queries,
+# levels, points, head dim) of RT-DETR-L at 640, over B = 32 streams x 8 frames
+MSDEFORM_SHAPES = (((80, 80), (40, 40), (20, 20)), 8, 300, 3, 4, 32)
+MSDEFORM_B = 256
+MSDEFORM_RTOL = 2 ** -7  # one bf16 rounding of a float32 sum taken in another order
 # phase 6: the live per-frame paths
 LIVE_FPS = 25.0        # a file rate other than the 30 a naive stamp assumes
 N_LIVE = 96            # counted frames of each live run
@@ -532,6 +543,97 @@ def tracker_graph_checks(pipe, frames: np.ndarray) -> dict:
     if unequal or eager_launches != 2 * K:
         fail(f"graphed and eager chunks differ: {unequal}, eager launches {eager_launches}")
     pipe.reset()
+    return out
+
+
+def msdeform_checks(overrides: dict, frames: np.ndarray) -> dict:
+    """Phase 5's G2, RT-DETR's deformable sampling (``ops/msdeform.py``):
+    (a) the kernel against its plain version on the same inputs at the
+    benchmark cell's shape (B = 256 frames, 300 queries, 8 heads, levels
+    80/40/20, 4 points, bf16 value maps, float32 locations, some outside
+    their level, and weights) and at B = 16: within ``MSDEFORM_RTOL`` and
+    the float32 reordering bound of a sum of 48 products, its
+    time (profiler trace and CUDA events), the plain version's and the byte
+    bound of ``perfbench/msdeform_bound.py``; (b) ``run_chunked`` of an
+    RT-DETR-L pipeline (seeded weights) over the phase's frames: the
+    kernel's launches in that run, one a decoder layer and chunk."""
+    from perfbench.msdeform_bound import msdeform_bound_s
+    from rtmodt_tpu_torch.config import load_config
+    from rtmodt_tpu_torch.config.loader import _deep_merge
+    from rtmodt_tpu_torch.ops import msdeform
+    from rtmodt_tpu_torch.runtime.pipeline import Pipeline
+
+    dev = torch.device(DEVICE)
+    shapes, heads, queries, levels, points, dim = MSDEFORM_SHAPES
+    len_v = sum(h * w for h, w in shapes)
+    out: dict = {"shapes": {}}
+    for b in (MSDEFORM_B, K):
+        gen = torch.Generator(device=dev).manual_seed(2300 + b)
+        value = torch.randn(b, len_v, heads, dim, generator=gen, device=dev).to(torch.bfloat16)
+        loc = torch.rand(b, queries, heads, levels, points, 2, generator=gen, device=dev)
+        loc = loc * 1.2 - 0.1
+        w = torch.softmax(torch.randn(b, queries, heads, levels * points, generator=gen,
+                                      device=dev), -1).view(b, queries, heads, levels, points)
+        before = msdeform.launches
+        got = msdeform.msdeform_attn(value, shapes, loc, w)
+        torch.cuda.synchronize()
+        calls = msdeform.launches - before
+        want = msdeform.msdeform_plain(value.float(), shapes, loc, w)
+        err = (got.float() - want).abs()
+        # an output is a float32 sum of 4 x levels x points products whose
+        # weights sum to at most 1, taken in another order on each side
+        atol = 2 * 4 * levels * points * 2.0 ** -24 * float(value.abs().max())
+        beyond = err > atol + MSDEFORM_RTOL * want.abs()
+        bad = int(beyond.sum())
+        rel = float((err / want.abs().clamp(min=1e-3)).max())
+        launch = lambda: msdeform.msdeform_attn(value, shapes, loc, w)  # noqa: E731
+        traced = trace_by_kernel(launch, 20, ("msdeform_kernel",)).get("msdeform_kernel")
+        events_ms = cuda_time_ms(launch, iters=20)
+        plain_ms = cuda_time_ms(lambda: msdeform.msdeform_plain(value, shapes, loc, w),
+                                iters=5, warmup=1)
+        bound_s, bound_by = msdeform_bound_s(b, len_v, queries, heads, levels, points, dim, 2)
+        key = f"b{b}"
+        out["shapes"][key] = {"trace_ms": None if traced is None else traced["ms"],
+                              "traced_launches": None if traced is None else traced["launches"],
+                              "events_ms": events_ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                              "mismatches": bad, "max_abs_err": float(err.max()),
+                              "max_rel_err": rel, "atol": atol}
+        print(f"  msdeform kernel {key} ({b} x {queries} queries x {heads} heads, levels "
+              f"{shapes}, {points} points, bf16): {bad} values beyond rtol {MSDEFORM_RTOL}, "
+              f"atol {atol:.2e} (largest gap {float(err.max()):.2e}, relative {rel:.2e} "
+              f"where |plain| >= 1e-3), launches {calls}; "
+              + ("no profiler time" if traced is None else
+                 f"{traced['ms']:.4f} ms ({traced['launches']} of 20 launches traced)")
+              + f", CUDA events {events_ms:.4f} ms, plain version {plain_ms:.4f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({bound_by}, {100 * bound_s * 1e3 / events_ms:.1f} % "
+              "of it)", flush=True)
+        if bad or calls != 1:
+            fail(f"msdeform kernel differs from its plain version at {key} ({bad} values), "
+                 f"or launched {calls} times")
+        del value, loc, w, got, want, err, beyond
+    # (b) the main path: one launch a decoder layer and chunk
+    cfg = load_config(overrides=_deep_merge(overrides, {
+        "detection": {"model": "rtdetr-l", "num_classes": 80, "weights": None,
+                      "fallback_weights": None},
+        "events": {"alert": {"log_path": os.path.join(OUT_DIR, "events_rtdetr.jsonl")}}}))
+    pipe = Pipeline(cfg, device=DEVICE)
+    layers = len(pipe.detector.model.model[-1].decoder.layers)
+    pipe.run_chunked(list(frames[:2 * K]))            # warm-up: cuDNN plans, allocator
+    pipe.reset()
+    torch.cuda.synchronize()
+    msdeform.launches = 0
+    summary = pipe.run_chunked(list(frames))
+    launches = msdeform.launches
+    out["run"] = {"launches": launches, "chunks": summary["chunks"], "frames": summary["frames"],
+                  "decoder_layers": layers}
+    print(f"  RT-DETR-L run_chunked, {summary['chunks']} chunks of {K}: msdeform launches "
+          f"{launches} ({layers} decoder layers)", flush=True)
+    if launches != layers * summary["chunks"]:
+        fail(f"msdeform launched {launches} times for {summary['chunks']} chunks of a "
+             f"{layers}-layer decoder")
+    del pipe
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4514,6 +4616,7 @@ def main() -> int:
              f"unequal {wide_unequal}, K = {wcs.shape[1]}")
     del wide_pipe
     tracker = tracker_graph_checks(pipe, frames)
+    deform = msdeform_checks(overrides5, frames)
 
     phase("6/14 live per-frame paths: Pipeline.run per stage and packed, the CLI, "
           "dense-scene quality")
@@ -4613,6 +4716,18 @@ def main() -> int:
         "bound_ms": cell["bound_ms"], "bound_by": "bytes",
         "library_ms": None,   # no PyTorch call computes greedy assignment
         "shapes": tracker["shapes"], "run": tracker["run"]})
+    # G2, RT-DETR's deformable sampling (phase 5), at the rtdetr-l-640.streams32
+    # cell's launch; its launches counted over phase 5's RT-DETR-L run
+    cell = deform["shapes"][f"b{MSDEFORM_B}"]
+    kernels.append({
+        "name": "msdeform", "route": "cuda",
+        "source": "rtmodt_tpu_torch/csrc/msdeform_kernel.cu",
+        "replaces": None,     # no TPU kernel: the JAX package has no RT-DETR
+        "ms": cell["trace_ms"], "events_ms": cell["events_ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+        "library_ms": None,   # no PyTorch call computes it; torchvision is absent
+        "launches": deform["run"]["launches"], "shapes": deform["shapes"],
+        "run": deform["run"]})
     print(smi, flush=True)                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,6 +45,12 @@ class IngestionConfig:
     resolution: list[int] | None = None  # [w, h] override
 
 
+def is_rtdetr(model_name: str) -> bool:
+    """Whether a ``detection.model`` names an RT-DETR (``models/rtdetr.py``)
+    rather than a YOLOv8."""
+    return model_name.startswith("rtdetr")
+
+
 @dataclass
 class DetectionConfig:
     model: str = "yolov8s"

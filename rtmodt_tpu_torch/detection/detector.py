@@ -7,6 +7,12 @@ i32, class_names; empty frames give zero-length arrays) and the same
 BGR letterbox (``ops/letterbox.py``), the YOLOv8 forward, class-aware NMS
 with the CUDA kernel K1 at B = 1 (``ops/nms.py``) and back to source
 coordinates, all on the detector's device.
+
+``detection.model: rtdetr-l`` builds RT-DETR-L instead (``models/rtdetr.py``,
+imported only then), whose output step replaces NMS: ``Detector.postprocess``
+runs K1 for YOLOv8 and the gate plus top ``max_detections`` of the queries
+for RT-DETR, both giving the same fixed-shape ``NMSResult``; ``heads`` hands
+RT-DETR the letterbox's content box.  int8 refuses RT-DETR.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from rtmodt_tpu_torch.config.loader import DetectionConfig, PipelineConfig
+from rtmodt_tpu_torch.config.loader import DetectionConfig, PipelineConfig, is_rtdetr
 from rtmodt_tpu_torch.device import resolve_device
 from rtmodt_tpu_torch.models.weights import is_fused, load_into, load_params
-from rtmodt_tpu_torch.models.yolov8 import YOLOv8, build_model
-from rtmodt_tpu_torch.ops.letterbox import letterbox, letterbox_meta, unletterbox_boxes
+from rtmodt_tpu_torch.models.yolov8 import build_model
+from rtmodt_tpu_torch.ops.letterbox import (LetterboxMeta, letterbox, letterbox_meta,
+                                            unletterbox_boxes)
 from rtmodt_tpu_torch.ops.nms import NMSResult, batched_nms_from_logits
+from rtmodt_tpu_torch.profiling.spans import span
 from rtmodt_tpu_torch.utils.coco_names import COCO_NAMES
 from rtmodt_tpu_torch.utils.logging import logger
 
@@ -72,13 +80,16 @@ def init_random_(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_float_model(cfg: DetectionConfig | PipelineConfig, device: torch.device,
-                      seed: int = 0) -> YOLOv8:
+                      seed: int = 0) -> torch.nn.Module:
     """The float32 model in eval mode on ``device``: the weights of
     ``detection.weights`` (else ``fallback_weights``; a reference ``.npz``, BN
-    folded or not, or an ultralytics ``.pt`` / ``.pth``), else random weights
-    from ``seed``; BN folded when ``fuse_bn``."""
+    folded or not, or an ultralytics ``.pt`` / ``.pth``; for an RT-DETR an
+    ``.npz`` or ``.pt`` under Ultralytics' names), else random weights from
+    ``seed``; BN folded when ``fuse_bn``."""
     d = cfg.detection if isinstance(cfg, PipelineConfig) else cfg
     path = d.weights or d.fallback_weights
+    if is_rtdetr(d.model):
+        return _build_rtdetr(d, path, device, seed)
     if path:
         logger.info(f"loading weights from {path}")
         flat = load_params(path)
@@ -92,6 +103,25 @@ def build_float_model(cfg: DetectionConfig | PipelineConfig, device: torch.devic
                        f"seed {seed} (detections are meaningless)")
         model = build_model(d.model, d.num_classes)
         init_random_(model, torch.Generator().manual_seed(seed))
+    model.eval()
+    if d.fuse_bn:
+        model.fuse_bn()
+    return model.to(device)
+
+
+def _build_rtdetr(d: DetectionConfig, path: str | None, device: torch.device,
+                  seed: int) -> torch.nn.Module:
+    from rtmodt_tpu_torch.models import rtdetr
+    from rtmodt_tpu_torch.models.weights import load_rtdetr_state
+
+    model = rtdetr.build_model(d.model, d.num_classes)
+    if path:
+        logger.info(f"loading weights from {path}")
+        rtdetr.load_state(model, load_rtdetr_state(path))
+    else:
+        logger.warning("no weights given - using random initialization from "
+                       f"seed {seed} (detections are meaningless)")
+        rtdetr.init_random_(model, torch.Generator().manual_seed(seed))
     model.eval()
     if d.fuse_bn:
         model.fuse_bn()
@@ -119,6 +149,8 @@ def deploy(model: torch.nn.Module, d: DetectionConfig, device: torch.device,
                                             quantize_with_scales)
 
     dtype = torch.bfloat16 if d.half else torch.float32
+    if d.quant == "int8" and is_rtdetr(d.model):
+        raise ValueError(f"detection.quant=int8 quantizes YOLOv8 only, not {d.model}")
     if d.quant == "int8" and d.quant_scales:
         # frozen QAT scales: the deployed program computes what QAT optimized
         logger.info(f"int8 with frozen QAT scales from {d.quant_scales}")
@@ -142,9 +174,9 @@ def build_detector(cfg: DetectionConfig | PipelineConfig, device: torch.device,
 
 
 class Detector:
-    """YOLOv8 detector with the reference's public API, on ``device``
-    (default ``"cuda"``; raises where CUDA is absent unless ``"cpu"`` is
-    asked for)."""
+    """YOLOv8 (or RT-DETR) detector with the reference's public API, on
+    ``device`` (default ``"cuda"``; raises where CUDA is absent unless
+    ``"cpu"`` is asked for)."""
 
     def __init__(self, config: DetectionConfig | dict | None = None,
                  device: str | torch.device = "cuda", warmup: bool = True,
@@ -184,20 +216,46 @@ class Detector:
         return letterbox(frame, self.cfg.input_size, dtype=self.dtype)[0]
 
     @torch.no_grad()
-    def forward(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, img: torch.Tensor, meta: LetterboxMeta | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         """``(S, S, 3)`` model input -> raw heads of a batch of one."""
         # NHWC storage is a channels_last NCHW tensor: no copy
-        return self.model(img[None].permute(0, 3, 1, 2))
+        return self.heads(img[None].permute(0, 3, 1, 2), meta)
+
+    @torch.no_grad()
+    def heads(self, img: torch.Tensor, meta: LetterboxMeta | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Model input ``(N, 3, S, S)`` -> raw heads.  An RT-DETR picks its
+        queries inside the content box of the letterbox ``meta`` (None: the
+        whole input); YOLOv8 takes no geometry."""
+        if meta is None or not is_rtdetr(self.cfg.model):
+            return self.model(img)
+        from rtmodt_tpu_torch.models.rtdetr import content_box
+
+        return self.model(img, content=content_box(meta.pad_left, meta.pad_top, meta.new_w,
+                                                   meta.new_h, self.cfg.input_size))
+
+    @torch.no_grad()
+    def postprocess(self, raw: tuple[torch.Tensor, torch.Tensor]) -> NMSResult:
+        """Raw heads of B frames -> their detections in model-input
+        coordinates: K1's class-aware NMS for YOLOv8, the output step of
+        ``models/rtdetr.py::detections`` (a ``decoder`` span) for RT-DETR."""
+        d = self.cfg
+        if is_rtdetr(d.model):
+            from rtmodt_tpu_torch.models.rtdetr import detections
+
+            with span("decoder"):
+                return detections(raw[0], raw[1], d.input_size, d.conf_threshold,
+                                  d.max_detections, self._class_mask)
+        return batched_nms_from_logits(
+            raw[0], raw[1], d.input_size, d.conf_threshold, d.iou_threshold,
+            d.max_detections, d.nms_candidates, self._class_mask, d.agnostic_nms)
 
     @torch.no_grad()
     def nms_letterboxed(self, raw: tuple[torch.Tensor, torch.Tensor]) -> NMSResult:
         """Raw heads -> the frame's detections (no batch axis) in model-input
-        coordinates; K1 runs once, at B = 1."""
-        d = self.cfg
-        res = batched_nms_from_logits(
-            raw[0], raw[1], d.input_size, d.conf_threshold, d.iou_threshold,
-            d.max_detections, d.nms_candidates, self._class_mask, d.agnostic_nms)
-        return NMSResult(*(t[0] for t in res))
+        coordinates; K1 runs once, at B = 1 (YOLOv8)."""
+        return NMSResult(*(t[0] for t in self.postprocess(raw)))
 
     def to_source(self, res: NMSResult, src_h: int, src_w: int) -> NMSResult:
         """Detections in model-input coordinates -> source coordinates."""
@@ -214,7 +272,8 @@ class Detector:
         """Detections as fixed-shape device tensors (``max_detections`` rows)."""
         frame = torch.as_tensor(frame_bgr_u8).to(self.device)
         h, w = frame.shape[:2]
-        return self.nms(self.forward(self.preprocess(frame)), h, w)
+        meta = letterbox_meta(h, w, self.cfg.input_size)
+        return self.nms(self.forward(self.preprocess(frame), meta), h, w)
 
     def detect(self, frame_bgr_u8: np.ndarray) -> Detections:
         """Reference-compatible API: BGR uint8 HWC in, host Detections out."""

@@ -15,6 +15,10 @@ through the port's copy of the reference's converter
 -> ``batch_stats``); a pickled ``DetectionModel`` loads without the
 ultralytics package through a tolerant unpickler.  ``load_params`` picks the
 route by file name.  Orbax directories need jax and are refused.
+
+An RT-DETR keeps Ultralytics' own state-dict names (``models/rtdetr.py``):
+``load_rtdetr_state`` reads them from an ``.npz`` or, through
+``ultralytics_state``, from an ``rtdetr-*.pt``.
 """
 
 from __future__ import annotations
@@ -298,10 +302,18 @@ def _walk_module_state(obj: Any, prefix: str, out: dict) -> None:
 
 def load_ultralytics_pt(path: str) -> dict[str, np.ndarray]:
     """An ultralytics ``.pt`` / ``.pth`` checkpoint -> the flat Flax
-    variables.  A plain tensor checkpoint loads with ``weights_only=True``;
-    a pickled model unpickles tolerantly, and its state dict comes from the
-    module, or from walking the stubbed module tree with torch's dotted
-    naming."""
+    variables (``ultralytics_state`` through the YOLOv8 converter)."""
+    state = ultralytics_state(path)
+    logger.info(f"converted {len(state)} tensors from {path}")
+    return convert_ultralytics_state_dict(state)
+
+
+def ultralytics_state(path: str) -> dict[str, np.ndarray]:
+    """An ultralytics ``.pt`` / ``.pth`` checkpoint's state dict, float32
+    numpy under its own names.  A plain tensor checkpoint loads with
+    ``weights_only=True``; a pickled model unpickles tolerantly, and its
+    state dict comes from the module, or from walking the stubbed module
+    tree with torch's dotted naming."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     except Exception:
@@ -317,11 +329,21 @@ def load_ultralytics_pt(path: str) -> dict[str, np.ndarray]:
         _walk_module_state(model, "", sd)
         if not sd:
             raise TypeError(f"unsupported checkpoint structure in {path}")
-    # every tensor goes to the converter, which refuses any it does not map
-    state = {k: v.detach().float().numpy() for k, v in sd.items()
-             if isinstance(v, torch.Tensor)}
-    logger.info(f"converted {len(state)} tensors from {path}")
-    return convert_ultralytics_state_dict(state)
+    # every tensor goes on: the YOLOv8 converter refuses any it does not
+    # map, the RT-DETR loader any its model lacks
+    return {k: v.detach().float().numpy() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def load_rtdetr_state(path: str) -> dict[str, np.ndarray]:
+    """An RT-DETR's weights under Ultralytics' state-dict names: an ``.npz``
+    keyed by them (``perfbench/archs/rtdetr.py`` writes one), or an
+    ultralytics ``rtdetr-*.pt``."""
+    if path.endswith((".pt", ".pth")):
+        return ultralytics_state(path)
+    if path.endswith(".npz"):
+        return load_npz(path)
+    raise ValueError(f"unrecognized RT-DETR weights format: {path}")
 
 
 def load_params(path: str) -> dict[str, np.ndarray]:

@@ -20,7 +20,14 @@ The program's spans (one each where the work happens):
     CPU tensors only: on the card the kernel syncs nothing, so a ``track``
     span there holds no ``sync``;
   * ``emit``: ``events/zone_engine.py::ZoneEventEngine._emit``, one event's
-    alert (JSONL append, webhook or MQTT, log line).
+    alert (JSONL append, webhook or MQTT, log line);
+  * ``backbone``, ``encoder``, ``decoder``: ``models/rtdetr.py``'s forward,
+    inside ``detect`` (a second ``decoder`` span holds the output step,
+    ``Detector.postprocess``).
+
+``count(name, n)`` adds to a named counter while the recorder is on;
+``drain_counts()`` returns and clears them: ``msdeform_launches`` and
+``msdeform_points`` (``ops/msdeform.py``, from shapes, no device read).
 
 Readers put them on a device trace's clock through the Unix clock (an
 offset to ``time.time()``); the ``profiling.trace_dir`` capture
@@ -56,6 +63,7 @@ NO_SPAN = _NoSpan()
 
 _on = False
 _recorded: list[Span] = []
+_counts: dict[str, int] = {}
 _local = threading.local()
 
 
@@ -88,6 +96,19 @@ def span(name: str):
     if not _on:
         return NO_SPAN
     return _OpenSpan(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while the recorder is on."""
+    if _on:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def drain_counts() -> dict[str, int]:
+    """The counters since the last drain; clears them."""
+    out = dict(_counts)
+    _counts.clear()
+    return out
 
 
 def enable() -> None:

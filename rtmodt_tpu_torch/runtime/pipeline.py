@@ -76,7 +76,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from rtmodt_tpu_torch.config.loader import PipelineConfig, load_config
+from rtmodt_tpu_torch.config.loader import PipelineConfig, is_rtdetr, load_config
 from rtmodt_tpu_torch.detection.detector import Detections, Detector, build_detector  # noqa: F401
 from rtmodt_tpu_torch.device import config_device, resolve_device
 from rtmodt_tpu_torch.events.zone_engine import ZoneEventEngine
@@ -219,13 +219,22 @@ class Pipeline:
         img = planar_letterbox(y, u, v, d.input_size, meta.pad_left, meta.pad_top,
                                dtype=self.detector.dtype)
         # NHWC storage is a channels_last NCHW tensor: no copy
-        box_dist, cls_logits = self.detector.model(img.permute(0, 3, 1, 2))
-        res = batched_nms_from_logits(
-            box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
-            d.max_detections, d.nms_candidates, self.detector._class_mask, d.agnostic_nms)
+        res = self._postprocess(self.detector.heads(img.permute(0, 3, 1, 2), meta))
         if to_source:
             res = res._replace(boxes=unletterbox_boxes_packed(res.boxes, meta))
         return res
+
+    def _postprocess(self, raw: tuple[torch.Tensor, torch.Tensor]) -> NMSResult:
+        """Raw heads of B frames -> detections in model-input coordinates:
+        ``Detector.postprocess``'s dispatch, with YOLOv8's K1 call looked up
+        in this module, where perfbench's fault tests replace
+        ``batched_nms_from_logits`` to alter detections where they are made."""
+        d = self.cfg.detection
+        if is_rtdetr(d.model):
+            return self.detector.postprocess(raw)
+        return batched_nms_from_logits(
+            raw[0], raw[1], d.input_size, d.conf_threshold, d.iou_threshold,
+            d.max_detections, d.nms_candidates, self.detector._class_mask, d.agnostic_nms)
 
     @torch.no_grad()
     def embed_chunk(self, y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -249,18 +258,15 @@ class Pipeline:
         BGR programs)."""
         d = self.cfg.detection
         det = self.detector
-        n, h, w = frames.shape[:3]
-        img, _ = letterbox(frames, d.input_size, dtype=det.dtype)
-        box_dist, cls_logits = det.model(img.permute(0, 3, 1, 2))
-        res = batched_nms_from_logits(
-            box_dist, cls_logits, d.input_size, d.conf_threshold, d.iou_threshold,
-            d.max_detections, d.nms_candidates, det._class_mask, d.agnostic_nms)
+        n = frames.shape[0]
+        img, meta = letterbox(frames, d.input_size, dtype=det.dtype)
+        res = self._postprocess(det.heads(img.permute(0, 3, 1, 2), meta))
         feats = None
         if self._is_appearance:
             crops = crop_and_resize(img, res.boxes, tuple(self.tracker.cfg.crop_hw)) * 255.0
             m = res.boxes.shape[1]
             feats = self.tracker.embedder(crops.reshape(n * m, *crops.shape[2:])).reshape(n, m, -1)
-        res = res._replace(boxes=unletterbox_boxes(res.boxes, letterbox_meta(h, w, d.input_size)))
+        res = res._replace(boxes=unletterbox_boxes(res.boxes, meta))
         return res, feats
 
     @torch.no_grad()
@@ -491,7 +497,7 @@ class Pipeline:
             img = det.preprocess(fdev)
             p.tock("preprocess", sync_on=img)
             p.tick("inference")
-            raw = det.forward(img)
+            raw = det.forward(img, letterbox_meta(h, w, det.cfg.input_size))
             p.tock("inference", sync_on=raw)
             p.tick("nms")
             res = det.nms(raw, h, w)
@@ -542,7 +548,7 @@ class Pipeline:
         if self._gmc_on:
             self._gmc(fdev, (w / g, h / g))
         img = det.preprocess(fdev)
-        res = det.nms_letterboxed(det.forward(img))
+        res = det.nms_letterboxed(det.forward(img, letterbox_meta(h, w, det.cfg.input_size)))
         feats = (self.tracker.embed_fn(normalized=True)(img, res.boxes)
                  if self._is_appearance else None)
         res = det.to_source(res, h, w)

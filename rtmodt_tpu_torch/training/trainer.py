@@ -129,6 +129,7 @@ class Trainer:
 
     def __init__(self, cfg: dict, device: str | torch.device = "cuda",
                  weights: str | None = None, mesh: Mesh | None = None):
+        from rtmodt_tpu_torch.config.loader import is_rtdetr
         from rtmodt_tpu_torch.device import resolve_device
         from rtmodt_tpu_torch.models.weights import load_npz
         from rtmodt_tpu_torch.models.yolov8 import build_model
@@ -137,6 +138,9 @@ class Trainer:
         from rtmodt_tpu_torch.training.train_step import (create_train_state,
                                                           make_optimizer, make_schedule)
 
+        if is_rtdetr(cfg["model"]):
+            raise ValueError(f"training (and QAT) covers YOLOv8 only; {cfg['model']} has "
+                             "no loss, assigner or denoising queries in the port")
         n_dev = int((cfg.get("parallel") or {}).get("num_devices") or 0)
         if mesh is None and n_dev > 1:
             raise ValueError(f"parallel.num_devices: {n_dev} trains in {n_dev} ranks, one per "

@@ -62,7 +62,7 @@ def export(model_name: str = "yolov8s", weights: str | None = None, fmt: str = "
     """Write the export; returns its path."""
     import torch
 
-    from rtmodt_tpu_torch.config.loader import DetectionConfig
+    from rtmodt_tpu_torch.config.loader import DetectionConfig, is_rtdetr
     from rtmodt_tpu_torch.detection.detector import Detector
     from rtmodt_tpu_torch.models.weights import save_npz
     from rtmodt_tpu_torch.utils.logging import logger
@@ -72,6 +72,9 @@ def export(model_name: str = "yolov8s", weights: str | None = None, fmt: str = "
                          "without JAX; export npz (which the JAX package loads) instead")
     if fmt not in ("npz", "export"):
         raise ValueError(f"unknown format {fmt!r} (npz | export | orbax)")
+    if is_rtdetr(model_name):
+        raise ValueError(f"export writes YOLOv8 only: the reference's npz and the NHWC "
+                         f"head export have no layout for {model_name}")
     if weights is None and seed is None:
         raise ValueError("give --weights, or --seed for random weights")
     det = Detector(DetectionConfig(model=model_name, weights=weights, input_size=imgsz,
